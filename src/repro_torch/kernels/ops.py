@@ -1,0 +1,134 @@
+"""Dispatch wrappers around the SGMV kernels: segment preparation (sort by
+adapter, pad segments to whole blocks), kernel launch, and scatter-back.
+The counterpart of the JAX package's ``kernels/ops.py``.
+
+``sgmv_fused`` is the LoRA delta y = (x @ A[aid]) @ B[aid] * scaling for
+a ragged multi-adapter token batch on the fused kernel B1 (padded bank);
+``sgmv_bucketed_fused`` is the same contract for a rank-bucketed bank set
+on kernel B2, tokens laid out bucket-major so each bucket's blocks run at
+its own rank in one launch. The segment layout is computed on the device
+with no host sync (stable argsort, scatter-add counts, cumsum), so the
+engine's k-step decode keeps one sync per k tokens.
+"""
+from __future__ import annotations
+
+import torch
+
+from .ref import sgmv_ref
+from .sgmv import sgmv_fused_blocks, sgmv_multibank_blocks
+
+
+def _prepare_core(token_adapter, key, n_keys: int, block_t: int,
+                  T_pad: int):
+    """Shared segment layout: sort tokens by ``key``, give each key a
+    whole number of ``block_t`` blocks. Returns (dest, block_adapter)
+    where ``block_adapter`` holds the *adapter id* of each block (spare
+    blocks hold 0)."""
+    T = token_adapter.shape[0]
+    dev = token_adapter.device
+    key = key.long()
+    order = torch.argsort(key, stable=True)          # jnp.argsort is stable
+    aid_s = token_adapter[order]
+    key_s = key[order]
+    # bincount would sync the host for its output length; a scatter-add
+    # into n_keys bins does not
+    counts = torch.zeros(n_keys, dtype=torch.long, device=dev).scatter_add_(
+        0, key, torch.ones_like(key))
+    padded = (counts + block_t - 1) // block_t * block_t
+    offs = torch.cumsum(padded, 0) - padded
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T, device=dev) - starts[key_s]
+    dest_sorted = offs[key_s] + rank                 # (T,)
+    dest = torch.empty(T, dtype=torch.int32, device=dev)
+    dest[order] = dest_sorted.to(torch.int32)
+    block_adapter = torch.zeros(T_pad // block_t, dtype=torch.int32,
+                                device=dev)
+    block_adapter[dest_sorted // block_t] = aid_s.to(torch.int32)
+    return dest, block_adapter
+
+
+def prepare_segments(token_adapter, n_adapters: int, block_t: int = 16):
+    """Sort tokens by adapter; give each adapter a whole number of
+    ``block_t`` blocks.
+
+    Returns (dest, block_adapter):
+      dest          : (T,) position of each (original-order) token in the
+                      padded, segment-blocked layout
+      block_adapter : (T_pad // block_t,) adapter id per block
+    T_pad = ``padded_len(T, n_adapters, block_t)``.
+    """
+    T = token_adapter.shape[0]
+    T_pad = padded_len(T, n_adapters, block_t)
+    return _prepare_core(token_adapter, token_adapter, n_adapters, block_t,
+                         T_pad)
+
+
+def prepare_segments_bucketed(token_adapter, adapter_bucket,
+                              n_adapters: int, n_buckets: int = 1,
+                              block_t: int = 16):
+    """Bucket-major form: tokens sorted by (bucket, adapter) so each rank
+    bucket's blocks are contiguous. Same return contract and T_pad as
+    ``prepare_segments``."""
+    T = token_adapter.shape[0]
+    T_pad = padded_len(T, n_adapters, block_t)
+    token_adapter = token_adapter.long()
+    key = adapter_bucket.long()[token_adapter] * n_adapters + token_adapter
+    return _prepare_core(token_adapter, key, n_buckets * n_adapters,
+                         block_t, T_pad)
+
+
+def padded_len(T: int, n_adapters: int, block_t: int) -> int:
+    """Padded token count: every adapter may waste < block_t slots."""
+    return T + n_adapters * block_t
+
+
+def scatter_rows(x, dest, T_pad):
+    """(T, d) rows -> the zero-padded (T_pad, d) segment-blocked layout."""
+    x_pad = x.new_zeros((T_pad, x.shape[1]))
+    x_pad[dest.long()] = x
+    return x_pad
+
+
+def sgmv_fused(x, A, B, token_adapter, *, scaling: float = 1.0,
+               block_t: int = 16):
+    """x: (T, d_in); A: (Na, d_in, r); B: (Na, r, d_out); token_adapter:
+    (T,) int. The LoRA delta on kernel B1, one launch. Returns
+    (T, d_out)."""
+    T = x.shape[0]
+    Na = A.shape[0]
+    dest, block_adapter = prepare_segments(token_adapter, Na, block_t)
+    x_pad = scatter_rows(x, dest, padded_len(T, Na, block_t))
+    y_pad = sgmv_fused_blocks(x_pad, A, B, block_adapter, block_t=block_t)
+    return y_pad[dest.long()] * scaling
+
+
+def sgmv_bucketed_fused(x, banks, token_adapter, adapter_bucket,
+                        adapter_local=None, *, scaling: float = 1.0,
+                        block_t: int = 16):
+    """Rank-bucketed LoRA delta in one launch of kernel B2.
+
+    banks: sequence of (A_b (Na_b, d, r_b), B_b (Na_b, r_b, d_out)) in
+    ascending bucket order; adapter_bucket: (Na,) adapter -> bucket;
+    adapter_local: (Na,) adapter -> row of its bucket's bank (None: every
+    bucket bank is indexed by the global id). ``block_t`` is fixed (16 by
+    default); the JAX package's residency plan is a TPU VMEM plan and
+    changes no number, so it has no counterpart here."""
+    T = x.shape[0]
+    banks = tuple((A, B) for A, B in banks)
+    Na = adapter_bucket.shape[0]
+    dest, block_adapter = prepare_segments_bucketed(
+        token_adapter, adapter_bucket, Na, len(banks), block_t)
+    local = torch.arange(Na, dtype=torch.int32, device=x.device) \
+        if adapter_local is None else adapter_local.to(torch.int32)
+    ba = block_adapter.long()
+    block_bucket = adapter_bucket.to(torch.int32)[ba]
+    block_row = local[ba]
+    x_pad = scatter_rows(x, dest, padded_len(T, Na, block_t))
+    y_pad = sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row,
+                                  block_t=block_t)
+    return y_pad[dest.long()] * scaling
+
+
+def sgmv_reference(x, A, B, token_adapter, scaling: float = 1.0):
+    """Exported oracle (tests compare kernels against this)."""
+    return sgmv_ref(x, A, B, token_adapter, scaling)

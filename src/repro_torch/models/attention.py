@@ -1,0 +1,108 @@
+"""Grouped-query attention of the PyTorch port (the GQA part of the JAX
+package's ``models/attention.py``; MLA and cross-attention wait for
+ROADMAP queue A item 11).
+
+Every projection takes an optional ``lora`` hook, a callable
+``lora(name, x) -> delta`` that the serving engine uses to add batched
+heterogeneous-adapter deltas on the Q/K/V/O projections.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from .common import apply_rope, attend_cache, dense_init, flash_attention
+
+
+def _zero_lora(name, x):
+    return 0.0
+
+
+class GQAAttention(nn.Module):
+    """wq: (d, H*hd); wk, wv: (d, Kv*hd); wo: (H*hd, d); optional biases
+    bq/bk/bv when ``cfg.qkv_bias``."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__()
+        d, H, Kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.resolved_head_dim
+
+        def w(shape):
+            return nn.Parameter(dense_init(gen, shape, dtype=dtype),
+                                requires_grad=False)
+
+        self.wq = w((d, H * hd))
+        self.wk = w((d, Kv * hd))
+        self.wv = w((d, Kv * hd))
+        self.wo = w((H * hd, d))
+        if cfg.qkv_bias:
+            def zeros(n):
+                return nn.Parameter(torch.zeros(n, dtype=dtype,
+                                                device=gen.device),
+                                    requires_grad=False)
+            self.bq, self.bk, self.bv = (zeros(H * hd), zeros(Kv * hd),
+                                         zeros(Kv * hd))
+
+
+def _qkv(cfg, p: GQAAttention, x, positions, lora, rope: bool = True):
+    B, S, d = x.shape
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = x @ p.wq + lora("q", x)
+    k = x @ p.wk + lora("k", x)
+    v = x @ p.wv + lora("v", x)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Kv, hd)
+    v = v.reshape(B, S, Kv, hd)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_full(cfg, p: GQAAttention, x, positions, *, causal=True, window=0,
+             lora: Optional[Callable] = None):
+    """Full-sequence attention. Returns (out, (k, v)) for cache seeding."""
+    lora = lora or _zero_lora
+    q, k, v = _qkv(cfg, p, x, positions, lora)
+    o = flash_attention(q, k, v, causal=causal, q_positions=positions,
+                        k_positions=positions, window=window)
+    B, S = x.shape[:2]
+    o = o.reshape(B, S, -1)
+    out = o @ p.wo + lora("o", o)
+    return out, (k, v)
+
+
+def gqa_decode(cfg, p: GQAAttention, x, k_cache, v_cache, pos, *, window=0,
+               lora: Optional[Callable] = None):
+    """Single-token decode. x: (B,1,d); caches (B,S,Kv,hd); pos: (B,) int
+    current position of the new token per row. Returns (out, (k_cache,
+    v_cache)) with the new token written (ring-indexed when window > 0).
+
+    The JAX version returns new caches; this one writes the given cache
+    tensors in place. JAX drops a write whose index is past the cache, as
+    happens for free slots and frozen rows whose ``pos`` ran on; torch
+    indexing would raise (a device-side assert on CUDA). Such rows are
+    masked: they write back the value already held at the clamped slot,
+    so no real slot changes."""
+    lora = lora or _zero_lora
+    B = x.shape[0]
+    S = k_cache.shape[1]
+    q, k, v = _qkv(cfg, p, x, pos[:, None], lora)
+    write_idx = pos % S if window else pos
+    keep = (write_idx < S)[:, None, None]
+    slot = write_idx.clamp(max=S - 1).long()
+    bidx = torch.arange(B, device=x.device)
+    k_cache[bidx, slot] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+                                      k_cache[bidx, slot])
+    v_cache[bidx, slot] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+                                      v_cache[bidx, slot])
+    slots = torch.arange(S, device=x.device)[None, :]
+    valid = slots <= pos.clamp(max=S - 1)[:, None]
+    o = attend_cache(q, k_cache, v_cache, valid)
+    o = o.reshape(B, 1, -1)
+    out = o @ p.wo + lora("o", o)
+    return out, (k_cache, v_cache)

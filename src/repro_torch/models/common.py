@@ -1,0 +1,148 @@
+"""Shared model machinery of the PyTorch port: the token-major flattening
+the SGMV path consumes, norms, rope, init, and plain-torch attention (a
+chunked online-softmax ``flash_attention`` for prefill and
+``attend_cache`` for decode). Counterparts of the JAX package's
+``models/common.py``; no library attention kernel is used.
+
+LoRA callback contract: blocks call ``lora(name, x) -> delta`` with
+x: (B, S, d_target) for a projection target name in {"q","k","v","o"};
+the callback owns the adapter gather and returns the batched LoRA delta
+in x.dtype (``repro_torch.lora.batched.make_lora_cb``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def rows_to_tokens(x):
+    """(B, S, d) -> ((B*S, d), (B, S)): token t of row b sits at b*S + t,
+    so per-row adapter ids repeat S times."""
+    B, S, d = x.shape
+    return x.reshape(B * S, d), (B, S)
+
+
+def tokens_to_rows(y, B: int, S: int):
+    """Inverse of ``rows_to_tokens`` for the (B*S, d_out) kernel output."""
+    return y.reshape(B, S, y.shape[-1])
+
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). Rotates
+    the two halves of the head dim (not interleaved pairs); angles in
+    fp32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)               # (hd/2,)
+    angles = positions[..., None].float() * freqs                # (...,S,hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, shape, fan_in=None,
+               dtype=torch.float32):
+    """N(0, 1/fan_in) weights drawn from ``gen`` on its device."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w / math.sqrt(fan_in)).to(dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool, q_positions, k_positions,
+                    window: int = 0, chunk_q: int = 512, chunk_k: int = 1024,
+                    scale: Optional[float] = None):
+    """q: (B,Sq,H,hd); k,v: (B,Sk,Kv,hd). GQA via head grouping.
+
+    Masking: causal (q_pos >= k_pos) and optional sliding window
+    (q_pos - k_pos < window). Positions are int tensors (Sq,), (Sk,).
+    Chunked online softmax over kv chunks, scores in fp32. Returns
+    (B,Sq,H,hd) in q.dtype. (MLA's ``extra_qk`` waits for the MLA port.)
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, Kv, _ = k.shape
+    hdv = v.shape[-1]
+    G = H // Kv
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+
+    cq = min(chunk_q, Sq)
+    ck = min(chunk_k, Sk)
+    pad_q = (-Sq) % cq
+    pad_k = (-Sk) % ck
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    qpos = F.pad(q_positions.to(torch.int32), (0, pad_q), value=-1)
+    kpos = F.pad(k_positions.to(torch.int32), (0, pad_k), value=2 ** 30)
+    nq, nk = qp.shape[1] // cq, kp.shape[1] // ck
+
+    qp = qp.reshape(B, nq, cq, Kv, G, hd).float() * scale
+    kp = kp.reshape(B, nk, ck, Kv, hd).float()
+    vp = vp.reshape(B, nk, ck, Kv, hdv).float()
+    qpos = qpos.reshape(nq, cq)
+    kpos = kpos.reshape(nk, ck)
+
+    m = torch.full((B, nq, cq, Kv, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, nq, cq, Kv, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, nq, cq, Kv, G, hdv), dtype=torch.float32,
+                      device=q.device)
+    for j in range(nk):                     # the kv-chunk scan
+        kc, vc, kposc = kp[:, j], vp[:, j], kpos[j]
+        s = torch.einsum("bqckgh,bzkh->bqckgz", qp, kc)
+        mask = torch.ones((nq, cq, ck), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos[:, :, None] >= kposc[None, None, :]
+        if window:
+            mask &= (qpos[:, :, None] - kposc[None, None, :]) < window
+        mask &= kposc[None, None, :] < 2 ** 30
+        s = torch.where(mask[None, :, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bqckgz,bzkh->bqckgh", p, vc)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out = out.reshape(B, nq * cq, H, hdv)[:, :Sq]
+    return out.to(q.dtype)
+
+
+def attend_cache(q, k_cache, v_cache, valid_mask, scale=None):
+    """Single-token decode attention against a KV cache.
+
+    q: (B,1,H,hd); caches: (B,S,Kv,hd); valid_mask: (B,S) bool. The scaled
+    q is cast to the cache dtype; the products sum in fp32.
+    """
+    B, _, H, hd = q.shape
+    Kv = k_cache.shape[2]
+    hdv = v_cache.shape[-1]
+    G = H // Kv
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    qf = (q.reshape(B, Kv, G, hd) * scale).to(k_cache.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", qf.float(), k_cache.float())
+    s = torch.where(valid_mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, hdv).to(q.dtype)

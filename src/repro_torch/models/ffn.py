@@ -1,0 +1,27 @@
+"""SwiGLU feed-forward of the PyTorch port (the dense half of the JAX
+package's ``models/ffn.py``; MoE waits for ROADMAP queue A item 11)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import dense_init
+
+
+class SwiGLU(nn.Module):
+    """w1, w3: (d, ff); w2: (ff, d), used as ``x @ w``."""
+
+    def __init__(self, d: int, ff: int, gen: torch.Generator,
+                 dtype=torch.float32):
+        super().__init__()
+        self.w1 = nn.Parameter(dense_init(gen, (d, ff), dtype=dtype),
+                               requires_grad=False)
+        self.w3 = nn.Parameter(dense_init(gen, (d, ff), dtype=dtype),
+                               requires_grad=False)
+        self.w2 = nn.Parameter(dense_init(gen, (ff, d), fan_in=ff,
+                                          dtype=dtype), requires_grad=False)
+
+    def forward(self, x):
+        return (F.silu(x @ self.w1) * (x @ self.w3)) @ self.w2
+

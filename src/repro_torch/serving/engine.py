@@ -1,0 +1,363 @@
+"""Single-server serving engine of the PyTorch port: slot-based continuous
+batching with heterogeneous LoRA adapters applied through the batched
+bank (the counterpart of the JAX package's ``serving/engine.py``).
+
+Prefill admission is batched: queued prompts of the SAME length are
+packed into one prefill call and their cache rows scattered into slots
+in one merge. Decode runs one step for the whole slot batch;
+``decode_steps(k)`` runs k of them on the device with on-device argmax
+and per-slot remaining-token bookkeeping, so decode costs one host sync
+per k tokens. Each slot row carries its own cache position; free slots
+drop their writes.
+
+The engine is placement-aware: its bank holds only the adapters placed
+onto this server, padded to that subset's max rank. ``load_adapters`` /
+``evict_adapter`` rebuild the bank mid-flight, remapping the adapter
+indices of co-batched slots. ``bank_mode`` selects the layout
+(``"padded"`` or ``"bucketed"``); both give the same tokens.
+
+``lora_kernel`` defaults to ``"sgmv"``: the hand-written kernels B1
+(padded) and B2 (bucketed), or their plain versions when the engine runs
+on the CPU. ``"einsum"`` selects the gather-einsum path. Not ported in
+this slice: the page pool, the mesh-sharded mode, the VLM and audio
+frontends (ROADMAP).
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.core.request import Phase, ServeRequest
+from repro_torch.device import resolve_device
+from repro_torch.lora.bank import build_bank, rank_bucket
+from repro_torch.models import model as M
+
+from .metrics import MetricsCollector
+
+Request = ServeRequest
+
+
+class ServingEngine:
+    def __init__(self, cfg, params, adapter_ranks: Dict[str, int],
+                 *, max_batch: int = 8, max_len: int = 512,
+                 seed: int = 0, bank_mode: str = "padded",
+                 decode_block: int = 1, lora_kernel: str = "sgmv",
+                 clock: Callable[[], float] = time.monotonic,
+                 tracer=None, server_id: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        if params.embed.device.type != self.device.type:
+            raise ValueError(f"params live on {params.embed.device}, the "
+                             f"engine on {self.device}")
+        if lora_kernel not in ("einsum", "sgmv"):
+            raise ValueError(f"unknown lora kernel {lora_kernel!r}")
+        self.cfg = cfg
+        # duck-typed obs tracer: per-iteration spans stamped on the engine
+        # clock, carrying the batch shape the cost-model drift meter reads
+        self.tracer = tracer
+        self._track = f"server:{server_id}"
+        self.bank_mode = bank_mode
+        self.decode_block = decode_block
+        self.lora_kernel = lora_kernel
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self._clock = clock
+        self._bank_seed = seed
+        self.slots: List[Optional[ServeRequest]] = [None] * max_batch
+        self.slot_adapter = torch.zeros(max_batch, dtype=torch.int32,
+                                        device=self.device)
+        self.last_token = torch.zeros(max_batch, dtype=torch.int32,
+                                      device=self.device)
+        self.metrics = MetricsCollector()
+        self.queue: List[ServeRequest] = []
+        self.completed: List[ServeRequest] = []
+        self._iter = 0
+        self.bank_rebuilds = 0
+        self.decode_dispatches = 0
+        self.prefill_dispatches = 0
+        self.tokens_decoded = 0
+
+        self.adapter_ranks: Dict[str, int] = {}
+        self._rebuild_bank(dict(adapter_ranks))
+        self.bank_rebuilds = 0          # the initial build doesn't count
+        # the cache is fp32 whatever the params' dtype, as in the JAX engine
+        self.cache = M.init_cache(cfg, max_batch, max_len, torch.float32,
+                                  device=self.device)
+
+    # -- placement-aware bank management --------------------------------
+    def _rebuild_bank(self, adapter_ranks: Dict[str, int]) -> None:
+        self.adapter_ranks = adapter_ranks
+        # The JAX engine builds an fp32 bank and casts it to x.dtype in
+        # every LoRA call; this bank is built in the params' dtype, which
+        # changes no number and at bf16 saves casting the bank every step.
+        self.lora_bank = build_bank(self.cfg, adapter_ranks, self._bank_seed,
+                                    mode=self.bank_mode,
+                                    n_layers=self.cfg.n_layers,
+                                    dtype=self.params.embed.dtype,
+                                    device=self.device)
+        self.adapter_ids = list(self.lora_bank.adapter_ids)
+        self._adapter_idx = {aid: i
+                             for i, aid in enumerate(self.adapter_ids)}
+        self.ranks = list(self.lora_bank.ranks)
+        self.max_rank = self.lora_bank.max_rank  # padding = subset max
+        self.bank = self.lora_bank.data
+        self.bank_rebuilds += 1
+        # remap adapter indices of co-batched slots to the new bank layout
+        idx = [self._adapter_idx[r.adapter_id] if r is not None else 0
+               for r in self.slots]
+        self.slot_adapter = torch.tensor(idx, dtype=torch.int32,
+                                         device=self.device)
+        self._slot_lora = self.lora_bank.lora_idx(self.slot_adapter)
+
+    def load_adapters(self, adapter_ranks: Dict[str, int]) -> bool:
+        """Add adapters to this server's bank. Returns True if the bank
+        was rebuilt."""
+        new = {aid: r for aid, r in adapter_ranks.items()
+               if aid not in self.adapter_ranks}
+        if not new:
+            return False
+        self._rebuild_bank({**self.adapter_ranks, **new})
+        return True
+
+    def adapter_weights(self, adapter_id: str):
+        """One adapter's unpadded weights (what a peer reads remotely)."""
+        return self.lora_bank.get_adapter(adapter_id)
+
+    def install_adapter(self, adapter_id: str, rank: int,
+                        weights=None) -> bool:
+        """Make ``adapter_id`` servable, with ``weights`` read from a peer
+        written over its rows (in place) when given. Returns True if the
+        bank was rebuilt."""
+        added = self.load_adapters({adapter_id: rank})
+        if weights is not None:
+            self.lora_bank = self.lora_bank.set_adapter(adapter_id, weights)
+            self.bank = self.lora_bank.data
+        return added
+
+    def evict_adapter(self, adapter_id: str) -> bool:
+        """Drop an adapter from the bank. Refuses (returns False) while
+        the adapter still has queued or co-batched requests, or if it is
+        the server's last adapter."""
+        if adapter_id not in self.adapter_ranks:
+            return False
+        if len(self.adapter_ranks) == 1:
+            return False
+        if any(r is not None and r.adapter_id == adapter_id
+               for r in self.slots):
+            return False
+        if any(q.adapter_id == adapter_id for q in self.queue):
+            return False
+        self._rebuild_bank({aid: r for aid, r in self.adapter_ranks.items()
+                            if aid != adapter_id})
+        return True
+
+    # ------------------------------------------------------------------
+    def submit(self, req: ServeRequest) -> None:
+        if req.adapter_id not in self.adapter_ranks:
+            raise KeyError(f"adapter {req.adapter_id!r} is not loaded on "
+                           f"this server (hosted: {self.adapter_ids})")
+        self.queue.append(req)
+
+    def _admit(self, now: float) -> None:
+        free = [s for s in range(self.max_batch) if self.slots[s] is None]
+        if not free or not self.queue:
+            return
+        take = self.queue[:len(free)]
+        del self.queue[:len(take)]
+        # FIFO-assign slots, then one prefill call per same-length group
+        groups: Dict[int, list] = {}
+        for req in take:
+            slot = free.pop(0)
+            groups.setdefault(len(req.prompt), []).append((slot, req))
+        for length, grp in groups.items():
+            self._prefill_group(length, grp)
+        # slot -> (bucket, local) bank indices once per admit pass
+        self._slot_lora = self.lora_bank.lora_idx(self.slot_adapter)
+
+    def _batch_shape_attrs(self, reqs, value) -> dict:
+        """Span attrs describing a batch's rank shape: ``max_rank`` plus,
+        in bucketed mode, per-rank-bucket sums of ``value(req)``."""
+        ranks = [self.adapter_ranks[r.adapter_id] for r in reqs]
+        attrs = {"max_rank": max(ranks), "bank_mode": self.bank_mode}
+        if self.bank_mode == "bucketed":
+            buckets: Dict[int, int] = {}
+            for r, req in zip(ranks, reqs):
+                b = rank_bucket(max(1, r))
+                buckets[b] = buckets.get(b, 0) + value(req)
+            attrs["buckets"] = buckets
+        return attrs
+
+    def _prefill_group(self, length: int, grp) -> None:
+        t0 = self._clock()
+        n = len(grp)
+        aidx = [self._adapter_idx[req.adapter_id] for _, req in grp]
+        toks = torch.tensor([req.prompt for _, req in grp],
+                            dtype=torch.int32, device=self.device)
+        aidx_t = torch.tensor(aidx, dtype=torch.int32, device=self.device)
+        logits, cache1 = M.prefill(self.cfg, self.params, toks,
+                                   bank=self.bank,
+                                   lora_idx=self.lora_bank.lora_idx(aidx_t),
+                                   cache_len=self.max_len,
+                                   cache_dtype=torch.float32,
+                                   lora_kernel=self.lora_kernel)
+        self.prefill_dispatches += 1
+        firsts = logits.argmax(dim=-1).to(torch.int32)
+        firsts_host = firsts.tolist()            # the group's one sync
+        slots = torch.tensor([slot for slot, _ in grp], dtype=torch.long,
+                             device=self.device)
+        self._merge_many(cache1, slots, length)
+        self.slot_adapter[slots] = aidx_t
+        self.last_token[slots] = firsts
+        t = self._clock()
+        for i, (slot, req) in enumerate(grp):
+            req.phase = Phase.DECODE
+            req.slot = slot
+            req.output.append(firsts_host[i])
+            req.t_first_token = t
+            req.prefill_start = t0
+            req.prefill_done = t
+            self.slots[slot] = req
+        if self.tracer is not None:
+            reqs = [req for _, req in grp]
+            attrs = self._batch_shape_attrs(reqs, lambda r: length)
+            attrs.update(tokens=n * length, batch=n)
+            self.tracer.record("prefill", t0, t, cat="iteration",
+                               track=self._track, attrs=attrs)
+
+    def _merge_many(self, cache1, slots, length: int) -> None:
+        """Scatter n freshly prefilled rows (batch axis 1 everywhere but
+        "pos") into their slots, in place."""
+        for k, v in self.cache.items():
+            if k == "pos":
+                v[slots] = length
+            else:
+                v[:, slots] = cache1[k].to(v.dtype)
+
+    def _finish_token(self, slot: int, req: ServeRequest, token: int,
+                      now: float) -> None:
+        """Record one decoded token for a slot; free the slot if done."""
+        req.output.append(token)
+        self.tokens_decoded += 1
+        done = len(req.output) >= req.max_new_tokens
+        if done or len(req.prompt) + len(req.output) >= self.max_len:
+            req.phase = Phase.DONE
+            req.t_finish = now
+            req.finish = now
+            self.metrics.record(req)
+            self.completed.append(req)
+            self.slots[slot] = None
+
+    def _decode_fn(self, tokens):
+        logits, self.cache = M.decode_step(
+            self.cfg, self.params, self.cache, tokens, bank=self.bank,
+            lora_idx=self._slot_lora, lora_kernel=self.lora_kernel)
+        return logits.argmax(dim=-1).to(torch.int32)
+
+    def _decode_once(self) -> None:
+        if not any(s is not None for s in self.slots):
+            return
+        t0 = self._clock()
+        active = [r for r in self.slots if r is not None]
+        self.last_token = self._decode_fn(self.last_token)
+        self.decode_dispatches += 1
+        nxt = self.last_token.tolist()          # the iteration's one sync
+        now = self._clock()
+        if self.tracer is not None:
+            attrs = self._batch_shape_attrs(active, lambda r: 1)
+            attrs.update(batch=len(active), steps=1, iters=1)
+            self.tracer.record("decode", t0, now, cat="iteration",
+                               track=self._track, attrs=attrs)
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self._finish_token(slot, req, nxt[slot], now)
+        self._iter += 1
+
+    # -- multi-token decode steps ---------------------------------------
+    def decode_steps(self, k: int) -> int:
+        """Run ``k`` decode iterations with ONE host sync: on-device argmax
+        and per-slot remaining-token counters; rows past their budget
+        freeze (their cache position keeps advancing and the token they
+        emit repeats and is discarded). Token streams are identical to
+        ``k`` single ``step()`` calls. Returns k."""
+        if not any(s is not None for s in self.slots):
+            return 0
+        t0 = self._clock()
+        left = [0] * self.max_batch
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            # an active slot always decodes at least one more token, then
+            # finishes on whichever budget it crosses first
+            left[slot] = max(1, min(req.max_new_tokens - len(req.output),
+                                    self.max_len - len(req.prompt)
+                                    - len(req.output)))
+        steps_left = torch.tensor(left, dtype=torch.int32,
+                                  device=self.device)
+        tok = self.last_token
+        emitted = []
+        for _ in range(k):
+            nxt = self._decode_fn(tok)
+            active = steps_left > 0
+            tok = torch.where(active, nxt, tok)
+            steps_left = steps_left - active.to(steps_left.dtype)
+            emitted.append(tok)
+        self.last_token = tok
+        self.decode_dispatches += 1
+        toks = torch.stack(emitted).tolist()    # ONE sync per k tokens
+        now = self._clock()
+        if self.tracer is not None:
+            active_reqs = [r for r in self.slots if r is not None]
+            attrs = self._batch_shape_attrs(active_reqs, lambda r: 1)
+            attrs.update(batch=len(active_reqs), steps=k, iters=k)
+            self.tracer.record("decode", t0, now, cat="iteration",
+                               track=self._track, attrs=attrs)
+        for step in range(k):
+            for slot, req in enumerate(self.slots):
+                if req is None or step >= left[slot]:
+                    continue
+                self._finish_token(slot, req, toks[step][slot], now)
+        self._iter += k
+        return k
+
+    def step(self) -> None:
+        """One engine iteration: admit then decode (prefill-prioritized).
+        With ``decode_block > 1`` each step decodes up to that many
+        tokens per slot with one host sync."""
+        self._admit(self._clock())
+        if self.decode_block > 1:
+            self.decode_steps(self.decode_block)
+        else:
+            self._decode_once()
+
+    def cancel(self, req_id: int) -> Optional[ServeRequest]:
+        """Abort a live request: drop it from the queue, or free its batch
+        slot. Returns the request, or None if it is not live here."""
+        for r in self.queue:
+            if r.req_id == req_id:
+                self.queue = [q for q in self.queue if q is not r]
+                return r
+        for slot, r in enumerate(self.slots):
+            if r is not None and r.req_id == req_id:
+                self.slots[slot] = None
+                return r
+        return None
+
+    def run_until_drained(self, max_iters: int = 100_000) -> dict:
+        it = 0
+        while (self.queue or any(s is not None for s in self.slots)) \
+                and it < max_iters:
+            self.step()
+            it += 1
+        return self.metrics.summary()
+
+    @property
+    def decode_iterations(self) -> int:
+        """Decode steps run so far (k per ``decode_steps(k)`` call)."""
+        return self._iter
+
+    @property
+    def active(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
