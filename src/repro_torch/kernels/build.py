@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use with ``nvcc`` into
-a shared library with a plain C interface, loaded with ``ctypes``:
+Every source under ``csrc/`` is compiled at first use with ``nvcc``, one
+process per source, all started together, and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/repro_torch/libsgmv-<hash>.so csrc/sgmv.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <tmp>/<source>.o csrc/<source>.cu  # each
+    nvcc -shared -o build/repro_torch/librepro_torch-<hash>.so <tmp>/*.o
 
 The library lands in ``build/repro_torch/`` under the repository root,
 keyed by a hash of the sources and the flags, so an edit rebuilds. There
@@ -24,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -46,7 +48,7 @@ def library_path() -> Path:
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libsgmv-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch-{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> Path:
@@ -57,17 +59,33 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(CSRC / "sgmv.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)                 # atomic: concurrent builders agree
+    nvcc = find_nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, proc in procs:             # wait for every compiler
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{report}")
+            elif verbose:
+                print(f"nvcc {name}:\n{report}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, out.name)
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(lib, out)             # atomic: concurrent builders agree
     return out
 
 
@@ -85,5 +103,15 @@ def load_library() -> ctypes.CDLL:
                 i32, vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
                 ctypes.POINTER(i32), i32, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_multibank_blocks_launch.restype = i32
+            lib.sgmv_shrink_launch.argtypes = [
+                i32, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+            lib.sgmv_shrink_launch.restype = i32
+            lib.sgmv_expand_launch.argtypes = [
+                i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+            lib.sgmv_expand_launch.restype = i32
+            lib.flash_mha_launch.argtypes = [
+                i32, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
+                i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp]
+            lib.flash_mha_launch.restype = i32
             _LIB = lib
         return _LIB

@@ -8,10 +8,15 @@
 //    src/repro/kernels/sgmv.py:sgmv_multibank_blocks (pallas_call at :319,
 //    body _make_multibank_kernel :192): the rank-bucketed bank, each
 //    block at its own bucket's rank.
+// B3a sgmv_shrink_kernel replaces sgmv.py:sgmv_shrink (pallas_call at :72,
+//    body _shrink_kernel :49) and B3b sgmv_expand_kernel replaces
+//    sgmv.py:sgmv_expand (pallas_call at :102, body _expand_kernel :56):
+//    the unfused pair, h = x_blk @ A[aid] written to device memory as
+//    (T_pad, r) in x's type, then y = h_blk @ B[aid].
 //
-// Contract (both kernels). x_pad (T_pad, d) is segment-blocked by
-// ops.prepare_segments*: block i holds block_t rows of one adapter. For
-// each block i < T_pad / block_t and each row t of it
+// Contract (B1, B2; B3a and B3b are its two halves). x_pad (T_pad, d)
+// is segment-blocked by ops.prepare_segments*: block i holds block_t rows
+// of one adapter. For each block i < T_pad / block_t and each row t of it
 //     h[t, :]   = round_to_T( sum_k x[t, k] * A[k, :] )   (fp32 sums)
 //     out[t, c] = round_to_T( sum_j h[t, j] * B[j, c] )   (fp32 sums)
 // where (A, B) is the block's adapter (B1: row block_adapter[i] of the
@@ -36,8 +41,15 @@
 // column, coalesced reads of B's rows, block_t fp32 sums in registers.
 // The summation order of an output never depends on the bank's rank, so
 // a bucketed bank and the equivalent zero-padded bank give bit-identical
-// results. CUDA cores in fp32 only: tensor cores, TMA and splitting a
-// block's work over several SMs are left to a later version. Spare blocks
+// results. All four kernels run the same two device functions,
+// shrink_block and expand_block, so an output's sums and their FMA
+// contraction are the same code in each: B3a then B3b equals B1 bit for
+// bit, and the per-bucket host loop over B3a/B3b equals B2. B3b tiles the
+// output columns over a second grid dimension (block_o columns a thread
+// block, as the TPU's j dimension), which spreads a token block over
+// more SMs and changes no sum. CUDA cores in fp32 only: tensor cores,
+// TMA and splitting a block's shrink over several SMs are left to a later
+// version. Spare blocks
 // (one per adapter, block_adapter = 0) and the empty rows of a partly
 // filled block (15 of 16 rows at bucketed decode) are computed and never
 // read; skipping them needs a per-block row count, also left for later.
@@ -69,17 +81,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);            // round to nearest even, as torch
 }
 
-// One token block: x_blk (block_t, d), a (d, r), b (r, d_out) ->
-// out_blk (block_t, d_out).
+// The shrink of one token block, shared by B1, B2 and B3a:
+// hs[t][c] = round_to_T(sum_k x_blk[t, k] * a[k, c]) for t < block_t,
+// c < r, held as fp32. Ends with a barrier, so hs is ready to read.
 template <typename T>
-__device__ void fused_block(const T* __restrict__ x_blk,
-                            const T* __restrict__ a,
-                            const T* __restrict__ b,
-                            T* __restrict__ out_blk,
-                            int block_t, int d, int r, int d_out) {
+__device__ void shrink_block(const T* __restrict__ x_blk,
+                             const T* __restrict__ a,
+                             float (*hs)[kMaxRank], int block_t, int d,
+                             int r) {
   __shared__ float xs[kMaxBlockT][kChunk];
   __shared__ float as[kChunk][kMaxRank];
-  __shared__ float hs[kMaxBlockT][kMaxRank];
 
   const int tid = threadIdx.x;
   const int rows_per_pass = kThreads / r;          // >= 2
@@ -87,7 +98,7 @@ __device__ void fused_block(const T* __restrict__ x_blk,
   const int c = tid % r;
   const int t0 = tid / r;
 
-  // shrink: h = x_blk @ a, fp32 sums in registers
+  // fp32 sums in registers
   float acc[kRowsPerThread];
 #pragma unroll
   for (int m = 0; m < kRowsPerThread; ++m) acc[m] = 0.f;
@@ -124,9 +135,17 @@ __device__ void fused_block(const T* __restrict__ x_blk,
     }
   }
   __syncthreads();
+}
 
-  // expand: out = h @ b, one thread per output column
-  for (int col = tid; col < d_out; col += kThreads) {
+// The expand of one token block over output columns [col0, col1), shared
+// by B1, B2 and B3b: one thread per column, coalesced reads of b's rows,
+// block_t fp32 sums in registers, j = 0 .. r-1 in order.
+template <typename T>
+__device__ void expand_block(const float (*hs)[kMaxRank],
+                             const T* __restrict__ b,
+                             T* __restrict__ out_blk, int block_t, int r,
+                             int d_out, int col0, int col1) {
+  for (int col = col0 + threadIdx.x; col < col1; col += kThreads) {
     float o[kMaxBlockT];
 #pragma unroll
     for (int t = 0; t < kMaxBlockT; ++t) o[t] = 0.f;
@@ -141,6 +160,19 @@ __device__ void fused_block(const T* __restrict__ x_blk,
     for (int t = 0; t < kMaxBlockT; ++t)
       if (t < block_t) out_blk[(size_t)t * d_out + col] = from_f<T>(o[t]);
   }
+}
+
+// One token block: x_blk (block_t, d), a (d, r), b (r, d_out) ->
+// out_blk (block_t, d_out).
+template <typename T>
+__device__ void fused_block(const T* __restrict__ x_blk,
+                            const T* __restrict__ a,
+                            const T* __restrict__ b,
+                            T* __restrict__ out_blk,
+                            int block_t, int d, int r, int d_out) {
+  __shared__ float hs[kMaxBlockT][kMaxRank];
+  shrink_block<T>(x_blk, a, hs, block_t, d, r);
+  expand_block<T>(hs, b, out_blk, block_t, r, d_out, 0, d_out);
 }
 
 // Indices come from ops' segment layout, which keeps every adapter id,
@@ -180,6 +212,40 @@ sgmv_multibank_blocks_kernel(const T* __restrict__ x, BankSet banks,
   const T* b = static_cast<const T*>(banks.B[bkt]) + (size_t)row * r * d_out;
   fused_block<T>(x + (size_t)i * block_t * d, a, b,
                  out + (size_t)i * block_t * d_out, block_t, d, r, d_out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sgmv_shrink_kernel(const T* __restrict__ x, const T* __restrict__ A,
+                   const int* __restrict__ block_adapter, T* __restrict__ h,
+                   int block_t, int d, int r) {
+  __shared__ float hs[kMaxBlockT][kMaxRank];
+  const int i = blockIdx.x;
+  const int aid = block_adapter[i];
+  shrink_block<T>(x + (size_t)i * block_t * d, A + (size_t)aid * d * r, hs,
+                  block_t, d, r);
+  T* h_blk = h + (size_t)i * block_t * r;
+  for (int e = threadIdx.x; e < block_t * r; e += kThreads)
+    h_blk[e] = from_f<T>(hs[e / r][e % r]);      // exact: hs holds T values
+}
+
+// Grid (token blocks, column tiles of block_o).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sgmv_expand_kernel(const T* __restrict__ h, const T* __restrict__ B,
+                   const int* __restrict__ block_adapter, T* __restrict__ out,
+                   int block_t, int r, int d_out, int block_o) {
+  __shared__ float hs[kMaxBlockT][kMaxRank];
+  const int i = blockIdx.x;
+  const int aid = block_adapter[i];
+  const T* h_blk = h + (size_t)i * block_t * r;
+  for (int e = threadIdx.x; e < block_t * r; e += kThreads)
+    hs[e / r][e % r] = to_f(h_blk[e]);
+  __syncthreads();
+  const int col0 = blockIdx.y * block_o;
+  expand_block<T>(hs, B + (size_t)aid * r * d_out,
+                  out + (size_t)i * block_t * d_out, block_t, r, d_out, col0,
+                  min(col0 + block_o, d_out));
 }
 
 bool shape_ok(int block_t, int r) {
@@ -245,6 +311,55 @@ extern "C" int sgmv_multibank_blocks_launch(
     sgmv_multibank_blocks_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), banks, bb, br,
         static_cast<__nv_bfloat16*>(out), block_t, d, d_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sgmv_shrink_launch(int dtype, const void* x, const void* A,
+                                  const void* block_adapter, void* h,
+                                  int nblocks, int block_t, int d, int r,
+                                  void* stream) {
+  if (!shape_ok(block_t, r) || nblocks < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblocks == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ba = static_cast<const int*>(block_adapter);
+  if (dtype == 0) {
+    sgmv_shrink_kernel<float><<<nblocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(A), ba,
+        static_cast<float*>(h), block_t, d, r);
+  } else if (dtype == 1) {
+    sgmv_shrink_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(A), ba,
+        static_cast<__nv_bfloat16*>(h), block_t, d, r);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sgmv_expand_launch(int dtype, const void* h, const void* B,
+                                  const void* block_adapter, void* out,
+                                  int nblocks, int block_t, int r, int d_out,
+                                  int block_o, void* stream) {
+  if (!shape_ok(block_t, r) || nblocks < 0 || d_out < 1 || block_o < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblocks == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ba = static_cast<const int*>(block_adapter);
+  const dim3 grid(nblocks, (d_out + block_o - 1) / block_o);
+  if (dtype == 0) {
+    sgmv_expand_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(h), static_cast<const float*>(B), ba,
+        static_cast<float*>(out), block_t, r, d_out, block_o);
+  } else if (dtype == 1) {
+    sgmv_expand_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(h),
+        static_cast<const __nv_bfloat16*>(B), ba,
+        static_cast<__nv_bfloat16*>(out), block_t, r, d_out, block_o);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

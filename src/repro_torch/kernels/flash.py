@@ -1,0 +1,114 @@
+"""Wrapper of the hand-written Hopper flash-attention kernel B5
+(``csrc/flash.cu``) and its plain-torch version.
+
+``flash_mha`` replaces the JAX package's Pallas ``kernels/flash.py:
+flash_mha``: multi-head attention (H == Kv) over (B, H, S, hd), online
+softmax in fp32, kv blocks wholly above the causal diagonal skipped. The
+causal mask is top-left aligned (query i sees keys j <= i), as the
+Pallas kernel's is; for Sq == Sk that is ordinary causal attention, for
+Sq != Sk it differs from the JAX oracle ``flash_mha_ref``, whose mask is
+``tril(k=Sk-Sq)``.
+
+On a CPU tensor the wrapper computes its plain version; on a CUDA tensor
+it launches its kernel or raises. ``flash_mha.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import load_library
+
+NEG_INF = -1e30                          # the Pallas kernel's sentinel
+MAX_TILE = 128                           # block_q, block_k and hd
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _default_scale(hd: int, scale):
+    return scale if scale is not None else 1.0 / (hd ** 0.5)
+
+
+def flash_mha_plain(q, k, v, *, causal: bool = True, scale=None):
+    """Plain version of B5: the same function with the whole score matrix
+    materialized. q: (B, H, Sq, hd); k, v: (B, H, Sk, hd). Scores in fp32
+    from q scaled in fp32; masked scores take no part in the softmax (the
+    kernel gives them weight 0); a row's sum is floored at 1e-30 as the
+    kernel's is. Returns (B, H, Sq, hd) in q's type."""
+    Sq, hd = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    qf = q.float() * _default_scale(hd, scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, k.float())
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = torch.arange(Sq, device=q.device)[:, None] >= \
+            torch.arange(Sk, device=q.device)[None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l.clamp_min(1e-30)
+    return o.to(q.dtype)
+
+
+def _check(q, k, v, block_q, block_k):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    B, H, Sq, hd = q.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {q.device}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.dim() != 4 or t.shape[:2] != (B, H) or t.shape[3] != hd:
+            raise ValueError(f"{name} {tuple(t.shape)} does not fit q "
+                             f"{tuple(q.shape)}: MHA needs (B, H, Sk, hd)")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a unit stride on its last dim")
+    if not 1 <= hd <= MAX_TILE:
+        raise ValueError(f"head dim {hd} outside 1..{MAX_TILE}")
+    if k.shape[2] < 1:
+        raise ValueError("flash_mha needs at least one key")
+    for name, b in (("block_q", block_q), ("block_k", block_k)):
+        if not 1 <= b <= MAX_TILE:
+            raise ValueError(f"{name}={b} outside 1..{MAX_TILE}")
+
+
+def flash_mha(q, k, v, *, causal: bool = True, scale=None,
+              block_q: int = 128, block_k: int = 128):
+    """B5. q: (B, H, Sq, hd); k, v: (B, H, Sk, hd), any strides with a
+    unit stride on hd (a (B, S, H, hd) tensor's ``transpose(1, 2)`` is
+    read in place). Tiles of min(block_q, Sq) queries and min(block_k, Sk)
+    keys, each at most 128; hd at most 128. Returns (B, H, Sq, hd) in q's
+    type; on CUDA its memory is laid out (B, Sq, H, hd), so
+    ``out.transpose(1, 2)`` is contiguous."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    scale = _default_scale(hd, scale)
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, causal=causal, scale=scale)
+    _check(q, k, v, block_q, block_k)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = load_library().flash_mha_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), strides, B, H, Sq, Sk, hd, min(block_q, Sq),
+            min(block_k, Sk), int(causal), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_mha_launch failed: CUDA error {err}")
+    flash_mha.launches += 1
+    return out
+
+
+flash_mha.launches = 0

@@ -9,13 +9,19 @@ on kernel B2, tokens laid out bucket-major so each bucket's blocks run at
 its own rank in one launch. The segment layout is computed on the device
 with no host sync (stable argsort, scatter-add counts, cumsum), so the
 engine's k-step decode keeps one sync per k tokens.
+
+``sgmv`` (and ``bgmv``, its block_t = 1 decode form) computes the same
+delta on the unfused pair B3a/B3b, bit for bit equal to ``sgmv_fused``;
+``sgmv_rank_bucketed`` is the host-loop oracle that ``sgmv_bucketed_fused``
+equals bit for bit. Neither is on the engine's path.
 """
 from __future__ import annotations
 
 import torch
 
 from .ref import sgmv_ref
-from .sgmv import sgmv_fused_blocks, sgmv_multibank_blocks
+from .sgmv import (sgmv_expand, sgmv_fused_blocks, sgmv_multibank_blocks,
+                   sgmv_shrink)
 
 
 def _prepare_core(token_adapter, key, n_keys: int, block_t: int,
@@ -87,6 +93,59 @@ def scatter_rows(x, dest, T_pad):
     x_pad = x.new_zeros((T_pad, x.shape[1]))
     x_pad[dest.long()] = x
     return x_pad
+
+
+def sgmv(x, A, B, token_adapter, *, scaling: float = 1.0,
+         block_t: int = 16):
+    """x: (T, d_in); A: (Na, d_in, r); B: (Na, r, d_out); token_adapter:
+    (T,) int. The LoRA delta on the unfused pair: kernel B3a writes the
+    (T_pad, r) intermediate, kernel B3b expands it. Returns (T, d_out),
+    bit for bit ``sgmv_fused``'s."""
+    T = x.shape[0]
+    Na = A.shape[0]
+    dest, block_adapter = prepare_segments(token_adapter, Na, block_t)
+    x_pad = scatter_rows(x, dest, padded_len(T, Na, block_t))
+    h = sgmv_shrink(x_pad, A, block_adapter, block_t=block_t)
+    y_pad = sgmv_expand(h, B, block_adapter, block_t=block_t)
+    return y_pad[dest.long()] * scaling
+
+
+def bgmv(x, A, B, token_adapter, *, scaling: float = 1.0):
+    """Decode-time per-token gather (Punica BGMV): ``sgmv`` at
+    block_t = 1."""
+    return sgmv(x, A, B, token_adapter, scaling=scaling, block_t=1)
+
+
+def sgmv_rank_bucketed(x, banks, token_adapter, adapter_rank_bucket, *,
+                       adapter_local=None, scaling: float = 1.0,
+                       block_t: int = 16):
+    """Host-loop rank-bucketed dispatcher, kept as the oracle that
+    ``sgmv_bucketed_fused`` equals bit for bit.
+
+    banks: sequence of (A_b, B_b) per bucket; adapter_rank_bucket: (Na,)
+    adapter -> bucket; adapter_local: optional (Na,) adapter -> row of
+    its bucket's bank (None: every bucket bank is indexed by the global
+    id). Each bucket's tokens are compacted into a dense sub-batch that
+    runs ``sgmv`` at the bucket's rank, then scattered back: two launches
+    per non-empty bucket. Reading ``token_adapter`` on the host to find
+    the buckets is this oracle's one sync, which is why the engine's
+    decode path never calls it."""
+    T = x.shape[0]
+    d_out = banks[0][1].shape[-1]
+    tok_adapter = token_adapter.long().cpu()          # the host sync
+    tok_bucket = adapter_rank_bucket.long().cpu()[tok_adapter]
+    local = tok_adapter if adapter_local is None else \
+        adapter_local.long().cpu()[tok_adapter]
+    out = x.new_zeros((T, d_out))
+    for i, (A, B) in enumerate(banks):
+        sel = torch.nonzero(tok_bucket == i).flatten()
+        if sel.numel() == 0:
+            continue
+        sel_dev = sel.to(x.device)
+        y = sgmv(x[sel_dev], A, B, local[sel].to(x.device, torch.int32),
+                 scaling=scaling, block_t=block_t)
+        out[sel_dev] = y.to(out.dtype)
+    return out
 
 
 def sgmv_fused(x, A, B, token_adapter, *, scaling: float = 1.0,

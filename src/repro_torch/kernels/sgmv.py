@@ -7,6 +7,11 @@ and their plain-torch versions.
 * ``sgmv_multibank_blocks`` (B2) replaces ``sgmv_multibank_blocks``: the
   rank-bucketed bank set in one launch, each block at its own bucket's
   rank.
+* ``sgmv_shrink`` (B3a) and ``sgmv_expand`` (B3b) replace the unfused
+  pair ``sgmv_shrink`` / ``sgmv_expand``: h = x_blk @ A[aid] to a
+  (T_pad, r) tensor in x's type, then y = h_blk @ B[aid]. The kernels
+  share B1's shrink and expand code, so the pair gives B1's output bit
+  for bit.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -28,20 +33,40 @@ MAX_RANK = 128
 MAX_BUCKETS = 8
 
 
-def sgmv_fused_blocks_ref(x_pad, A, B, block_adapter, *, block_t: int = 16):
-    """Plain version of B1. x_pad: (T_pad, d); A: (Na, d, r);
-    B: (Na, r, d_out); block_adapter: (T_pad // block_t,) int. Returns
-    (T_pad, d_out); rows past the last whole block are zero."""
+def _block_products(x_pad, W, block_adapter, block_t):
+    """Each whole ``block_t``-row block i of x_pad times
+    W[block_adapter[i]], fp32 sums rounded to x's type; rows past the
+    last whole block are zero."""
     T_pad, d = x_pad.shape
     nblocks = T_pad // block_t
     n = nblocks * block_t
     idx = block_adapter[:nblocks].long()
     xb = x_pad[:n].reshape(nblocks, block_t, d).float()
-    h = torch.bmm(xb, A[idx].float()).to(x_pad.dtype)
-    y = torch.bmm(h.float(), B[idx].float()).to(x_pad.dtype)
-    out = x_pad.new_zeros((T_pad, B.shape[-1]))
+    y = torch.bmm(xb, W[idx].float()).to(x_pad.dtype)
+    out = x_pad.new_zeros((T_pad, W.shape[-1]))
     out[:n] = y.reshape(n, -1)
     return out
+
+
+def sgmv_shrink_blocks_ref(x_pad, A, block_adapter, *, block_t: int = 16):
+    """Plain version of B3a. x_pad: (T_pad, d); A: (Na, d, r). Returns h
+    (T_pad, r)."""
+    return _block_products(x_pad, A, block_adapter, block_t)
+
+
+def sgmv_expand_blocks_ref(h_pad, B, block_adapter, *, block_t: int = 16):
+    """Plain version of B3b. h_pad: (T_pad, r); B: (Na, r, d_out).
+    Returns (T_pad, d_out)."""
+    return _block_products(h_pad, B, block_adapter, block_t)
+
+
+def sgmv_fused_blocks_ref(x_pad, A, B, block_adapter, *, block_t: int = 16):
+    """Plain version of B1, the plain B3a then B3b. x_pad: (T_pad, d);
+    A: (Na, d, r); B: (Na, r, d_out); block_adapter: (T_pad // block_t,)
+    int. Returns (T_pad, d_out); rows past the last whole block are
+    zero."""
+    h = sgmv_shrink_blocks_ref(x_pad, A, block_adapter, block_t=block_t)
+    return sgmv_expand_blocks_ref(h, B, block_adapter, block_t=block_t)
 
 
 def sgmv_multibank_blocks_ref(x_pad, banks, block_bucket, block_row, *,
@@ -51,23 +76,18 @@ def sgmv_multibank_blocks_ref(x_pad, banks, block_bucket, block_row, *,
     block_row: (T_pad // block_t,) int. Each bucket runs over every block
     (rows of other buckets clamp to row 0, as the Pallas index maps do)
     and keeps the blocks that are its own: no host sync."""
-    T_pad, d = x_pad.shape
-    d_out = banks[0][1].shape[-1]
+    T_pad = x_pad.shape[0]
     nblocks = T_pad // block_t
-    n = nblocks * block_t
     bkt = block_bucket[:nblocks].long()
     row = block_row[:nblocks].long()
-    xb = x_pad[:n].reshape(nblocks, block_t, d).float()
-    y = torch.zeros((nblocks, block_t, d_out), dtype=torch.float32,
-                    device=x_pad.device)
+    out = x_pad.new_zeros((T_pad, banks[0][1].shape[-1]))
     for b, (A, B) in enumerate(banks):
         sel = bkt == b
-        rows = torch.where(sel, row, 0)
-        h = torch.bmm(xb, A[rows].float()).to(x_pad.dtype)
-        y = torch.where(sel[:, None, None], torch.bmm(h.float(),
-                                                      B[rows].float()), y)
-    out = x_pad.new_zeros((T_pad, d_out))
-    out[:n] = y.to(x_pad.dtype).reshape(n, d_out)
+        keep = torch.zeros(T_pad, dtype=torch.bool, device=x_pad.device)
+        keep[:nblocks * block_t] = sel.repeat_interleave(block_t)
+        y = sgmv_fused_blocks_ref(x_pad, A, B, torch.where(sel, row, 0),
+                                  block_t=block_t)
+        out = torch.where(keep[:, None], y, out)
     return out
 
 
@@ -84,20 +104,28 @@ def _check_x(x_pad, block_t):
         raise ValueError(f"block_t={block_t} outside 1..{MAX_BLOCK_T}")
 
 
-def _check_bank(x_pad, A, B):
-    d = x_pad.shape[1]
-    for name, t in (("A", A), ("B", B)):
-        if t.device != x_pad.device or t.dtype != x_pad.dtype:
-            raise ValueError(f"{name} must be {x_pad.dtype} on "
-                             f"{x_pad.device}, got {t.dtype} on {t.device}")
-        if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 3-D tensor")
-    Na, d_a, r = A.shape
-    if d_a != d or B.shape[0] != Na or B.shape[1] != r:
-        raise ValueError(f"bank shapes A {tuple(A.shape)} / B "
-                         f"{tuple(B.shape)} do not fit x_pad (*, {d})")
+def _check_weight(x_pad, W, name, width, rank_axis):
+    """One bank: A (Na, d, r) with rank_axis 2, or B (Na, r, d_out) with
+    rank_axis 1; ``width`` is what the bank's axis 1 must equal (x's last
+    dim for A, the rank for B)."""
+    if W.device != x_pad.device or W.dtype != x_pad.dtype:
+        raise ValueError(f"{name} must be {x_pad.dtype} on {x_pad.device}, "
+                         f"got {W.dtype} on {W.device}")
+    if W.dim() != 3 or not W.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 3-D tensor")
+    if W.shape[1] != width:
+        raise ValueError(f"{name} {tuple(W.shape)} does not fit (*, {width})")
+    r = W.shape[rank_axis]
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} outside 1..{MAX_RANK}")
+
+
+def _check_bank(x_pad, A, B):
+    _check_weight(x_pad, A, "A", x_pad.shape[1], 2)
+    _check_weight(x_pad, B, "B", A.shape[-1], 1)
+    if B.shape[0] != A.shape[0]:
+        raise ValueError(f"bank shapes A {tuple(A.shape)} / B "
+                         f"{tuple(B.shape)} hold different adapter counts")
 
 
 def _check_index(x_pad, t, nblocks, name):
@@ -178,3 +206,61 @@ def sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row, *,
 
 
 sgmv_multibank_blocks.launches = 0
+
+
+def sgmv_shrink(x_pad, A, block_adapter, *, block_t: int = 16):
+    """B3a: h = x_blk @ A[block_adapter[i]] for every whole block i.
+    Returns (T_pad, r) in x's type; on CUDA rows past the last whole
+    block are left unwritten (no caller reads them)."""
+    if x_pad.device.type == "cpu":
+        return sgmv_shrink_blocks_ref(x_pad, A, block_adapter,
+                                      block_t=block_t)
+    _check_x(x_pad, block_t)
+    _check_weight(x_pad, A, "A", x_pad.shape[1], 2)
+    T_pad, d = x_pad.shape
+    r = A.shape[-1]
+    nblocks = T_pad // block_t
+    _check_index(x_pad, block_adapter, nblocks, "block_adapter")
+    h = torch.empty((T_pad, r), dtype=x_pad.dtype, device=x_pad.device)
+    with torch.cuda.device(x_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("sgmv_shrink_launch", _DTYPE_CODE[x_pad.dtype],
+                x_pad.data_ptr(), A.data_ptr(), block_adapter.data_ptr(),
+                h.data_ptr(), nblocks, block_t, d, r, stream)
+    sgmv_shrink.launches += 1
+    return h
+
+
+sgmv_shrink.launches = 0
+
+
+def sgmv_expand(h_pad, B, block_adapter, *, block_t: int = 16,
+                block_o: int = 2048):
+    """B3b: y = h_blk @ B[block_adapter[i]] for every whole block i, the
+    output columns in tiles of ``block_o`` (a second grid dimension; no
+    padding of d_out, so nothing is sliced back). Returns (T_pad, d_out)
+    in h's type; on CUDA rows past the last whole block are left
+    unwritten."""
+    if h_pad.device.type == "cpu":
+        return sgmv_expand_blocks_ref(h_pad, B, block_adapter,
+                                      block_t=block_t)
+    _check_x(h_pad, block_t)
+    _check_weight(h_pad, B, "B", h_pad.shape[1], 1)
+    if block_o < 1:
+        raise ValueError(f"block_o={block_o} must be positive")
+    T_pad, r = h_pad.shape
+    d_out = B.shape[-1]
+    nblocks = T_pad // block_t
+    _check_index(h_pad, block_adapter, nblocks, "block_adapter")
+    out = torch.empty((T_pad, d_out), dtype=h_pad.dtype, device=h_pad.device)
+    with torch.cuda.device(h_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("sgmv_expand_launch", _DTYPE_CODE[h_pad.dtype],
+                h_pad.data_ptr(), B.data_ptr(), block_adapter.data_ptr(),
+                out.data_ptr(), nblocks, block_t, r, d_out,
+                min(block_o, d_out), stream)
+    sgmv_expand.launches += 1
+    return out
+
+
+sgmv_expand.launches = 0

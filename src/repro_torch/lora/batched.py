@@ -12,6 +12,11 @@ Two execution paths, each with a padded and a bucketed form:
     for padded banks, ``sgmv_bucketed_fused`` (kernel B2, every bucket at
     its own rank) for bucketed banks.
 
+``apply_bank_sgmv`` is the token-major entry for a ``LoRABank``: the
+fused kernels by default, or with ``fused=False`` the unfused pair B3a/B3b
+(``ops.sgmv``; ``ops.sgmv_rank_bucketed`` for bucketed banks), bit for
+bit the same delta.
+
 ``make_lora_cb`` is layout-polymorphic: a dict bank slice selects the
 padded path with ``idx: (Bt,)`` global adapter rows; a tuple of per-
 bucket slices selects the bucketed path with ``idx: (Bt, 2)`` carrying
@@ -22,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import sgmv_bucketed_fused, sgmv_fused
+from repro_torch.kernels.ops import (sgmv, sgmv_bucketed_fused, sgmv_fused,
+                                     sgmv_rank_bucketed)
 from repro_torch.models.common import rows_to_tokens, tokens_to_rows
 
 
@@ -117,3 +123,33 @@ def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
         return lora_delta(x, t["A"], t["B"], idx, scaling)
 
     return cb
+
+
+def apply_bank_sgmv(x, bank, name: str, layer: int, token_adapter, *,
+                    scaling: float = 1.0, block_t=None, fused: bool = True):
+    """Kernel path for token-major layouts: x: (T, d) tokens,
+    token_adapter: (T,) *global* adapter rows of ``bank`` (a LoRABank);
+    the delta of target ``name`` at ``layer``. ``block_t=None`` means 16.
+
+    Padded banks run ``sgmv_fused`` (kernel B1) over the whole token set
+    at the bank's max rank; bucketed banks run ``sgmv_bucketed_fused``
+    (kernel B2), each bucket's tokens at the bucket's own rank, in one
+    launch. ``fused=False`` selects the unfused dispatchers on kernels
+    B3a/B3b: ``sgmv`` for padded banks, the host loop
+    ``sgmv_rank_bucketed`` for bucketed ones. Both give the same numbers
+    bit for bit. The bank is cast to x's type, as ``make_lora_cb`` does."""
+    bt = 16 if block_t is None else block_t
+    if bank.mode == "padded":
+        t = bank.data[name]
+        fn = sgmv_fused if fused else sgmv
+        return fn(x, t["A"][layer].to(x.dtype), t["B"][layer].to(x.dtype),
+                  token_adapter, scaling=scaling, block_t=bt)
+    banks = [(bk[name]["A"][layer].to(x.dtype),
+              bk[name]["B"][layer].to(x.dtype)) for bk in bank.data]
+    if fused:
+        return sgmv_bucketed_fused(x, banks, token_adapter,
+                                   bank.adapter_bucket, bank.adapter_local,
+                                   scaling=scaling, block_t=bt)
+    return sgmv_rank_bucketed(x, banks, token_adapter, bank.adapter_bucket,
+                              adapter_local=bank.adapter_local,
+                              scaling=scaling, block_t=bt)

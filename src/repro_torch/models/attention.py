@@ -5,6 +5,11 @@ ROADMAP queue A item 11).
 Every projection takes an optional ``lora`` hook, a callable
 ``lora(name, x) -> delta`` that the serving engine uses to add batched
 heterogeneous-adapter deltas on the Q/K/V/O projections.
+
+A prefill's attention (``gqa_full`` with ``positions=None``: the rows
+start at position 0) of an MHA config without a sliding window runs on
+the flash-attention kernel B5 (``kernels/flash.py``); GQA, windowed
+attention and explicit positions run on ``common.flash_attention``.
 """
 from __future__ import annotations
 
@@ -12,6 +17,8 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from repro_torch.kernels.flash import flash_mha
 
 from .common import apply_rope, attend_cache, dense_init, flash_attention
 
@@ -63,14 +70,27 @@ def _qkv(cfg, p: GQAAttention, x, positions, lora, rope: bool = True):
     return q, k, v
 
 
-def gqa_full(cfg, p: GQAAttention, x, positions, *, causal=True, window=0,
-             lora: Optional[Callable] = None):
-    """Full-sequence attention. Returns (out, (k, v)) for cache seeding."""
+def gqa_full(cfg, p: GQAAttention, x, positions=None, *, causal=True,
+             window=0, lora: Optional[Callable] = None):
+    """Full-sequence attention. ``positions=None`` means the prefill's
+    ``arange(S)``; then, when the attention is causal, unwindowed and MHA
+    (H == Kv), it runs on kernel B5, whose top-left causal mask is the
+    prefill's. The choice reads only shapes and arguments. Returns (out,
+    (k, v)) for cache seeding."""
     lora = lora or _zero_lora
-    q, k, v = _qkv(cfg, p, x, positions, lora)
-    o = flash_attention(q, k, v, causal=causal, q_positions=positions,
-                        k_positions=positions, window=window)
     B, S = x.shape[:2]
+    from_zero = positions is None
+    if from_zero:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(cfg, p, x, positions, lora)
+    if from_zero and causal and not window \
+            and cfg.n_heads == cfg.n_kv_heads:
+        # (B, S, H, hd) read in place; the output's memory is (B, S, H, hd)
+        o = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=True).transpose(1, 2)
+    else:
+        o = flash_attention(q, k, v, causal=causal, q_positions=positions,
+                            k_positions=positions, window=window)
     o = o.reshape(B, S, -1)
     out = o @ p.wo + lora("o", o)
     return out, (k, v)

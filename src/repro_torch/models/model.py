@@ -89,9 +89,11 @@ def _bank_layer(bank, i: int):
     return {t: {"A": w["A"][i], "B": w["B"][i]} for t, w in bank.items()}
 
 
-def _dense_block_full(cfg, bp: DenseBlock, x, positions, window, lora):
+def _dense_block_full(cfg, bp: DenseBlock, x, window, lora):
+    # positions None: the prefill's arange(S), which lets MHA attention
+    # take kernel B5
     h, kv = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                     positions, window=window, lora=lora)
+                     window=window, lora=lora)
     x = x + h
     f = bp.ffn(rmsnorm(x, bp.ln2, cfg.rmsnorm_eps))
     return x + f, kv
@@ -145,14 +147,13 @@ def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
     window = cfg.sliding_window if window is None else window
     B, S = tokens.shape
     cache_len = cache_len or (min(S, window) if window else S)
-    positions = torch.arange(S, device=tokens.device)
     x = _embed(params, tokens)
     cache = init_cache(cfg, B, cache_len, cache_dtype or params.embed.dtype,
                        device=tokens.device)
     for i, bp in enumerate(params.blocks):
         lora = make_lora_cb(_bank_layer(bank, i), lora_idx,
                             kernel=lora_kernel)
-        x, (k, v) = _dense_block_full(cfg, bp, x, positions, window, lora)
+        x, (k, v) = _dense_block_full(cfg, bp, x, window, lora)
         # one layer at a time into the cache (no stacked (L, ...) copy)
         _write_prefill_kv(k[None], cache["k"][i:i + 1], window)
         _write_prefill_kv(v[None], cache["v"][i:i + 1], window)
