@@ -18,7 +18,13 @@ Phases (any failure raises; the script then exits non-zero):
                kernel B5 32 times per prefill group, all four runs emit the
                same tokens. The arguments of each kernel's and each
                dispatcher's largest (prefill) and smallest (decode) call
-               are copied as the path runs.
+               are copied as the path runs. Then phase 6's trace is
+               served at tp = 1, the reference of phase 6 (padded and
+               bucketed emit the same tokens and first-prefill logits, bit
+               for bit), and the bf16 noise floor of that prefill is
+               measured: its logits against the einsum LoRA form, and
+               against the same prefill in fp32 on the same weights
+               upcast.
   3. kernels — B1 ``sgmv_fused_blocks``, B2 ``sgmv_multibank_blocks``, B3a
                ``sgmv_shrink``, B3b ``sgmv_expand`` (on B1's copied
                arguments) and B5 ``flash_mha`` against their plain-torch
@@ -34,7 +40,32 @@ Phases (any failure raises; the script then exits non-zero):
                its plain version and bit for bit against ``sgmv_fused``.
   5. parity  — fp32, full width, 2 layers: kernel and einsum engines,
                padded and bucketed, emit the same tokens; prefill logits
-               agree within 1e-3.
+               agree within 1e-3, and the LoRA delta moves them by more.
+  6. tp      — the tensor-parallel engine (``ServingEngine(mesh=...)``),
+               tp = 2 as two ranks on the one card over gloo (spawned;
+               each reports its launch counts and outputs through a
+               file): llama-7b-paper at full width and depth, bf16, 8
+               requests over the 5 adapters, prompts of 64 and 128, 16
+               new tokens, decode_block 4, both bank modes. B4a/B4b
+               (bucketed) and B3a/B3b (padded) launch 4 x 32 times a
+               model pass on each rank, B5 32 times a prefill group on 16
+               local heads; both ranks emit the same tokens and logits;
+               padded and bucketed emit the same tokens and first-prefill
+               logits, bit for bit; those logits agree with phase 2's tp
+               = 1 engine on the same trace, and with its fp32 reference,
+               within 5e-2 of their largest magnitude (token agreement
+               printed, not asserted: a bf16 tie may flip); the
+               all-reduce timed. Then phase 5's fp32 2-layer trace at tp
+               = 2, both modes: its tokens equal tp = 1's and its prefill
+               logits agree with tp = 1's within 1e-3.
+  7. split   — every kernel of the tp = 2 path against its plain version
+               on copies of rank 0's own calls, bf16 and fp32, timed as
+               phase 3: B4a ``sgmv_multibank_shrink`` (into memory that
+               held NaN) and B4b ``sgmv_multibank_expand`` (bucketed) and
+               B3a/B3b (padded) at d_local = d_out_local = 2048, decode
+               and prefill, and B5 on both prefill groups' 16 local
+               heads; and B4a then B4b equal to B2 bit for bit on phase
+               2's recorded B2 calls (tp = 1 shapes).
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -44,6 +75,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,8 +97,13 @@ KERNELS = {
            "src/repro/kernels/sgmv.py:319"),
     "B3a": ("sgmv_shrink", SGMV_SRC, "src/repro/kernels/sgmv.py:72"),
     "B3b": ("sgmv_expand", SGMV_SRC, "src/repro/kernels/sgmv.py:102"),
+    "B4a": ("sgmv_multibank_shrink", SGMV_SRC,
+            "src/repro/kernels/sgmv.py:414"),
+    "B4b": ("sgmv_multibank_expand", SGMV_SRC,
+            "src/repro/kernels/sgmv.py:487"),
     "B5": ("flash_mha", FLASH_SRC, "src/repro/kernels/flash.py:103"),
 }
+TP = 2
 
 
 def log(*a):
@@ -100,6 +137,14 @@ def _copy(a):
     return a
 
 
+def _move(a, device):
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    if isinstance(a, (tuple, list)):
+        return type(a)(_move(v, device) for v in a)
+    return a
+
+
 def _cast(a, dtype):
     if isinstance(a, torch.Tensor):
         return a.to(dtype) if a.is_floating_point() else a
@@ -112,18 +157,25 @@ class MainPathCalls:
     """Stands in, while it is entered, for the names under which the port
     calls the kernel wrappers B1/B2 and ``scatter_rows`` (``kernels/
     ops.py``), the dispatchers ``sgmv_fused`` / ``sgmv_bucketed_fused``
-    (``lora/batched.py``) and B5 (``models/attention.py``). It forwards
-    every call unchanged (the wrappers count their own launches) and keeps
-    a copy of the arguments of each one's smallest call (by rows: a decode
-    step) and largest (a prefill group), with the ``dest`` that laid out
-    the last SGMV call's tokens."""
+    (``lora/batched.py``) and B5 (``models/attention.py``); with ``tp``,
+    for ``scatter_rows``, B3a/B3b and B4a/B4b (``lora/batched.py``) and
+    B5, every kernel of the tensor-parallel path. It
+    forwards every call unchanged (the wrappers count their own launches)
+    and keeps a copy of the arguments of each one's smallest call (by
+    rows: a decode step) and largest (a prefill group), with the ``dest``
+    that laid out the last SGMV call's tokens."""
 
-    def __init__(self):
+    def __init__(self, tp=False):
         from repro_torch.kernels import ops
         from repro_torch.lora import batched
         from repro_torch.models import attention
         self.ops = ops
-        self.sites = [(ops, "sgmv_fused_blocks"),
+        # tp: the names the tensor-parallel path calls its kernels by
+        self.sites = [(batched, "sgmv_shrink"), (batched, "sgmv_expand"),
+                      (batched, "sgmv_multibank_shrink"),
+                      (batched, "sgmv_multibank_expand"),
+                      (attention, "flash_mha")] if tp else [
+                      (ops, "sgmv_fused_blocks"),
                       (ops, "sgmv_multibank_blocks"),
                       (batched, "sgmv_fused"),
                       (batched, "sgmv_bucketed_fused"),
@@ -177,11 +229,29 @@ def _sgmv_work(kid, args, dest, item):
     """(bytes, FLOPs) an SGMV call needs: the live rows of its input read
     and of its output written, each used adapter's weights once at the
     rank the call gives it, the block indices, and 2 * r FLOPs per live
-    token for each column its weights span (B1/B2: d + d_out, B3a: d,
-    B3b: d_out)."""
+    token for each column its weights span (B1/B2: d + d_out, B3a/B4a:
+    d, B3b/B4b: d_out)."""
     x_pad = args[0]
     T = dest.shape[0]
     live = (dest.long() // BLOCK_T).tolist()
+    if kid in ("B4a", "B4b"):
+        W, bkt, row = args[1:]
+        ax = 2 if kid == "B4a" else 1
+        rank = [w.shape[ax] for w in W]
+        bkt, row = bkt.tolist(), row.tolist()
+        used = {(bkt[i], row[i]): rank[bkt[i]] for i in set(live)}
+        tok_r = [rank[bkt[i]] for i in live]
+        # B4a reads x's d_local columns, writes h's max_r (zeros
+        # included: they enter the all-reduce); B4b reads each token's
+        # r_b columns of h and writes d_out_local
+        if kid == "B4a":
+            w_cols = x_pad.shape[1]
+            rows = T * (x_pad.shape[1] + max(rank))
+        else:
+            w_cols = W[0].shape[-1]
+            rows = sum(tok_r) + T * w_cols
+        byts = (rows + sum(used.values()) * w_cols) * item + 8 * len(bkt)
+        return byts, sum(2 * r * w_cols for r in tok_r)
     if kid == "B2":
         banks, bkt, row = args[1:]
         rank = [A.shape[-1] for A, _ in banks]
@@ -254,61 +324,82 @@ def _kernel_cases(calls):
     return cases
 
 
+def _plains():
+    from repro_torch.kernels import flash, sgmv
+    return {"B1": sgmv.sgmv_fused_blocks_ref,
+            "B2": sgmv.sgmv_multibank_blocks_ref,
+            "B3a": sgmv.sgmv_shrink_blocks_ref,
+            "B3b": sgmv.sgmv_expand_blocks_ref,
+            "B4a": sgmv.sgmv_multibank_shrink_blocks_ref,
+            "B4b": sgmv.sgmv_multibank_expand_blocks_ref,
+            "B5": flash.flash_mha_plain}
+
+
+def _check_and_time(kid, layout, args0, kw, dest, flush, results):
+    """One kernel wrapper and its plain version on one call's arguments,
+    bf16 (as the path ran it) and cast to fp32: compared (every row of
+    every whole SGMV block; every output of B5), timed, bounded. B4a
+    writes into memory that held NaN just before, so its zero columns
+    are checked as written."""
+    fn, plain = _wrappers()[kid], _plains()[kid]
+    dev = args0[0].device
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _cast(args0, dtype)
+        if kid == "B4a":
+            poison = torch.full((args[0].shape[0], max(
+                a.shape[-1] for a in args[1])), float("nan"), dtype=dtype,
+                device=dev)
+            ptr = poison.data_ptr()
+            del poison
+        y = fn(*args, **kw)
+        if kid == "B4a":
+            assert y.data_ptr() == ptr, "B4a's output did not reuse the NaN"
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        item = args[0].element_size()
+        if kid == "B5":
+            yk, yr = y.float(), ref.float()
+            byts, flops = _flash_work(args[0], item)
+            shape = f"q={tuple(args[0].shape)}"
+            q, k, v = args
+            library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), flush)
+        else:
+            n = args[0].shape[0] // BLOCK_T * BLOCK_T
+            yk, yr = y[:n].float(), ref[:n].float()
+            byts, flops = _sgmv_work(kid, args, dest, item)
+            shape = (f"in={tuple(args[0].shape)} blocks={n // BLOCK_T} "
+                     f"live_rows={dest.shape[0]}")
+            library_ms = None
+        assert torch.isfinite(yk).all(), f"{kid}: non-finite output"
+        err = (yk - yr).abs().max().item()
+        tol = TOL[dtype]
+        assert torch.allclose(yk, yr, atol=tol, rtol=tol), \
+            f"{kid} {layout} {dtype}: max abs err {err} > tol {tol}"
+        ms = _time_ms(lambda: fn(*args, **kw), flush)
+        plain_ms = _time_ms(lambda: plain(*args, **kw), flush)
+        t_bytes = byts / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+        lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+        log(f"kernel {kid} {KERNELS[kid][0]} layout={layout} "
+            f"dtype={str(dtype)[6:]} {shape} max_abs_err={err:.3e} "
+            f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}: {byts} B, "
+            f"{flops} FLOP)")
+        results[(kid, layout, dtype)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms)
+
+
 def phase_kernels(dev, calls):
     """Each kernel wrapper and its plain version on the arguments of the
     main path's own calls (bf16, as the engine ran them, and the same
-    tensors cast to fp32); every row of every whole SGMV block, and every
-    output of B5, compared."""
-    from repro_torch.kernels import flash, sgmv
-    wrappers = _wrappers()
-    plains = {"B1": sgmv.sgmv_fused_blocks_ref,
-              "B2": sgmv.sgmv_multibank_blocks_ref,
-              "B3a": sgmv.sgmv_shrink_blocks_ref,
-              "B3b": sgmv.sgmv_expand_blocks_ref,
-              "B5": flash.flash_mha_plain}
+    tensors cast to fp32)."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     results = {}
     for kid, layout, args0, kw, dest in _kernel_cases(calls):
-        fn, plain = wrappers[kid], plains[kid]
-        for dtype in (torch.bfloat16, torch.float32):
-            args = _cast(args0, dtype)
-            y = fn(*args, **kw)
-            ref = plain(*args, **kw)
-            torch.cuda.synchronize()
-            item = args[0].element_size()
-            if kid == "B5":
-                yk, yr = y.float(), ref.float()
-                byts, flops = _flash_work(args[0], item)
-                shape = f"q={tuple(args[0].shape)}"
-                q, k, v = args
-                library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), flush)
-            else:
-                n = args[0].shape[0] // BLOCK_T * BLOCK_T
-                yk, yr = y[:n].float(), ref[:n].float()
-                byts, flops = _sgmv_work(kid, args, dest, item)
-                shape = (f"in={tuple(args[0].shape)} blocks={n // BLOCK_T} "
-                         f"live_rows={dest.shape[0]}")
-                library_ms = None
-            assert torch.isfinite(yk).all(), f"{kid}: non-finite output"
-            err = (yk - yr).abs().max().item()
-            tol = TOL[dtype]
-            assert torch.allclose(yk, yr, atol=tol, rtol=tol), \
-                f"{kid} {layout} {dtype}: max abs err {err} > tol {tol}"
-            ms = _time_ms(lambda: fn(*args, **kw), flush)
-            plain_ms = _time_ms(lambda: plain(*args, **kw), flush)
-            t_bytes = byts / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-            bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-            lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
-            log(f"kernel {kid} {KERNELS[kid][0]} layout={layout} "
-                f"dtype={str(dtype)[6:]} {shape} max_abs_err={err:.3e} "
-                f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} "
-                f"bound_ms={bound_ms:.5f} ({bound_by}: {byts} B, "
-                f"{flops} FLOP)")
-            results[(kid, layout, dtype)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+        _check_and_time(kid, layout, args0, kw, dest, flush, results)
     del flush
     return results
 
@@ -387,9 +478,92 @@ def phase_engine(dev):
         assert out == first, f"tokens of {key} differ from padded/1"
     log(f"engine: all 4 runs emit the same tokens; first request "
         f"{first[0]}")
+    tp_ref = {}                  # phase 6's reference: tokens, logits
+    for mode in ("padded", "bucketed"):
+        eng, reqs, _ = _serve_tp_trace(cfg, params, dev, mode)
+        tp_ref[mode] = ([r.output for r in reqs], _first_logits(cfg, eng))
+        if mode == "padded":
+            einsum = _first_logits(cfg, eng, kernel="einsum")
+        del eng
+    assert tp_ref["padded"][0] == tp_ref["bucketed"][0]
+    assert torch.equal(tp_ref["padded"][1], tp_ref["bucketed"][1])
+    ref = tp_ref["padded"][1]
+    tp_ref["fp32"] = _fp32_first_logits(cfg, params, dev)  # params -> fp32
+    scale = ref.abs().max().item()
+    for what, other in (("the einsum LoRA form", einsum),
+                        ("fp32 on the same weights", tp_ref["fp32"])):
+        err = (ref - other).abs().max().item()
+        log(f"engine: bf16 noise floor, tp = 1 first prefill logits vs "
+            f"{what}: max abs diff {err:.4e} of max |logit| {scale:.4f} "
+            f"({err / scale:.3%})")
+    log("engine: phase 6's trace served at tp = 1 (its reference); padded "
+        "and bucketed tokens and logits equal bit for bit")
     del params
     torch.cuda.empty_cache()
-    return cfg, launches, rec.calls, banks
+    return cfg, launches, rec.calls, banks, tp_ref
+
+
+def _tp_trace(cfg):
+    """Phase 6's trace: 8 requests over the 5 adapters, prompts of 64 and
+    128 tokens (two prefill groups of 4), 16 new tokens each."""
+    from repro_torch.launch.serve import build_trace
+    return build_trace(cfg, 8, (64, 128), 16, seed=0)
+
+
+def _tp_weights(cfg, dev):
+    """Phase 6's trace's adapter ranks and bf16 weights (phase 2's seed)."""
+    from repro_torch.launch.serve import adapter_weights
+    ranks = {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in _tp_trace(cfg)}
+    return ranks, adapter_weights(cfg, ranks, dtype=torch.bfloat16,
+                                  device=dev, seed=3)
+
+
+def _serve_tp_trace(cfg, params, dev, mode, mesh=None):
+    """Phase 6's trace on one engine (a rank's, with ``mesh``), bf16,
+    sgmv, decode_block 4, phase 2's adapter weights. Returns (engine,
+    requests, summary)."""
+    from repro_torch.launch.serve import serve
+    return serve(cfg, params, _tp_trace(cfg), weights=_tp_weights(cfg, dev)[1],
+                 bank_mode=mode, lora_kernel="sgmv", decode_block=4,
+                 max_batch=8, mesh=mesh, device=dev)
+
+
+def _group_logits(cfg, eng, trace, S, kernel="sgmv", mesh=None):
+    """The trace's prompts of ``S`` tokens as one prefill group through
+    ``eng``'s model and bank again: fp32 logits on the host."""
+    from repro_torch.models import model as M
+    group = [(aid, p) for aid, p, _ in trace if len(p) == S]
+    dev = eng.device
+    toks = torch.tensor([p for _, p in group], device=dev)
+    gi = torch.tensor([eng.lora_bank.index(a) for a, _ in group],
+                      dtype=torch.int32, device=dev)
+    lg, _ = M.prefill(cfg, eng.params, toks, bank=eng.bank,
+                      lora_idx=eng.lora_bank.lora_idx(gi),
+                      lora_kernel=kernel, tp=mesh)
+    assert torch.isfinite(lg).all()
+    return lg.float().cpu()
+
+
+def _first_logits(cfg, eng, kernel="sgmv", mesh=None):
+    """The first prefill group of phase 6's trace (4 x 64 tokens): (4, V)
+    logits."""
+    return _group_logits(cfg, eng, _tp_trace(cfg), 64, kernel, mesh)
+
+
+def _fp32_first_logits(cfg, params, dev):
+    """``_first_logits`` in fp32 on the bf16 weights upcast: ``params``
+    (converted in place) and phase 2's adapter weights, einsum LoRA on a
+    padded bank. How far a bf16 pass lies from it is the bf16 noise floor
+    that phase 6's tp = 2 logits are held to."""
+    from repro_torch.serving import ServingEngine
+    params.float()
+    ranks, weights = _tp_weights(cfg, dev)
+    eng = ServingEngine(cfg, params, ranks, max_batch=4, max_len=72,
+                        bank_mode="padded", lora_kernel="einsum", device=dev)
+    for aid, w in weights.items():
+        eng.install_adapter(aid, ranks[aid], {
+            t: {k: v.float() for k, v in ab.items()} for t, ab in w.items()})
+    return _first_logits(cfg, eng, kernel="einsum")
 
 
 def _plain_bgmv(x, A, B, tok):
@@ -466,9 +640,11 @@ def phase_unfused(dev, cfg, calls, banks):
     return launches
 
 
-def phase_parity(dev):
+def _parity_setup(dev):
+    """Phase 5's fp32 model (full width, 2 layers), trace and adapter
+    weights, all from seeds."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import adapter_weights, build_trace, serve
+    from repro_torch.launch.serve import adapter_weights, build_trace
     from repro_torch.models import model as M
     cfg = dataclasses.replace(get_config("llama-7b-paper"), n_layers=2)
     params = M.init_params(cfg, 1, dtype=torch.float32, device=dev)
@@ -476,6 +652,15 @@ def phase_parity(dev):
     ranks = {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in trace}
     weights = adapter_weights(cfg, ranks, dtype=torch.float32, device=dev,
                               seed=4)
+    return cfg, params, trace, weights
+
+
+def phase_parity(dev):
+    """Returns the tokens all four engines emitted and the padded/einsum
+    engine's prefill logits of the trace's 24-token prompts."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    cfg, params, trace, weights = _parity_setup(dev)
     outs, logits = {}, {}
     for mode in ("padded", "bucketed"):
         for kernel in ("sgmv", "einsum"):
@@ -483,16 +668,8 @@ def phase_parity(dev):
                                  bank_mode=mode, lora_kernel=kernel,
                                  max_batch=8, device=dev)
             outs[(mode, kernel)] = [r.output for r in reqs]
-            toks = torch.tensor([p for _, p, _ in trace if len(p) == 24],
-                                device=dev)
-            gi = torch.tensor([eng.lora_bank.index(a) for a, p, _ in trace
-                               if len(p) == 24], dtype=torch.int32,
-                              device=dev)
-            lg, _ = M.prefill(cfg, params, toks, bank=eng.bank,
-                              lora_idx=eng.lora_bank.lora_idx(gi),
-                              lora_kernel=kernel)
-            assert torch.isfinite(lg).all()
-            logits[(mode, kernel)] = lg
+            logits[(mode, kernel)] = _group_logits(cfg, eng, trace, 24,
+                                                   kernel)
     ref = logits[("padded", "einsum")]
     for key, lg in logits.items():
         err = (lg - ref).abs().max().item()
@@ -501,12 +678,233 @@ def phase_parity(dev):
             f"{outs[key] == outs[('padded', 'einsum')]}")
         assert err <= 1e-3, (key, err)
         assert outs[key] == outs[("padded", "einsum")], key
-    delta = (logits[("padded", "einsum")] - M.prefill(
-        cfg, params, toks)[0]).abs().max().item()
+    toks = torch.tensor([p for _, p, _ in trace if len(p) == 24],
+                        device=dev)
+    delta = (ref - M.prefill(cfg, params, toks)[0].cpu()).abs().max().item()
     log(f"parity: the LoRA delta moves the logits by {delta:.3e}")
     assert delta > 1e-3
     del params
     torch.cuda.empty_cache()
+    return outs[("padded", "einsum")], ref
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the tensor-parallel engine and the split kernels B4a/B4b
+# ---------------------------------------------------------------------------
+
+
+def _time_all_reduce(x, reps=20):
+    """Median host ms of one all-reduce of ``x`` over the default group,
+    the card synchronised before and after; every rank calls it."""
+    import torch.distributed as dist
+    times = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _tp_rank(rank, tp, out_dir):
+    """One rank of phase 6, spawned with a default gloo group. Writes
+    ``rank{rank}.pt``; rank 0 also ``calls.pt``, copies of its calls of
+    every kernel of the path."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_engine_mesh(1, tp, device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config("llama-7b-paper")
+    params = M.init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    wrappers = _wrappers()
+    all_reduce, reduces = dist.all_reduce, [0]
+
+    def counted(*a, **kw):
+        reduces[0] += 1
+        return all_reduce(*a, **kw)
+
+    out = {"bf16": {}, "fp32": {}, "fp32_logits": {}}
+    dist.all_reduce = counted
+    try:
+        with MainPathCalls(tp=True) as rec:
+            for mode in ("padded", "bucketed"):
+                # the main path: counts at 0 just before each engine run,
+                # read just after
+                for k in wrappers.values():
+                    k.launches = 0
+                n0 = reduces[0]
+                eng, reqs, summ = _serve_tp_trace(cfg, params, dev, mode,
+                                                  mesh)
+                torch.cuda.synchronize()
+                out["bf16"][mode] = dict(
+                    tokens=[r.output for r in reqs], summary=summ,
+                    grew={kid: k.launches for kid, k in wrappers.items()},
+                    passes=eng.prefill_dispatches + eng.decode_iterations,
+                    prefills=eng.prefill_dispatches,
+                    reduces=reduces[0] - n0)
+                # off the counted run; one engine (6.5 GB of weights) at
+                # a time
+                out["bf16"][mode]["logits"] = _first_logits(cfg, eng,
+                                                            mesh=mesh)
+                del eng
+    finally:
+        dist.all_reduce = all_reduce
+    out["launches"] = {kid: sum(out["bf16"][m]["grew"][kid]
+                                for m in out["bf16"]) for kid in wrappers}
+    out["flash_heads"] = rec.calls[("flash_mha", "prefill")][0][0].shape[1]
+    if rank == 0:
+        torch.save({key: _move(call, "cpu") for key, call in
+                    rec.calls.items()}, Path(out_dir) / "calls.pt")
+    h = rec.calls[("sgmv_multibank_expand", "decode")][0][0]
+    out["all_reduce_ms"] = {
+        f"h {tuple(h.shape)} bf16 (bucketed decode)":
+            _time_all_reduce(torch.ones_like(h)),
+        "hidden (8, 1, 4096) bf16 (decode)": _time_all_reduce(
+            torch.ones((8, 1, 4096), dtype=torch.bfloat16, device=dev)),
+        "hidden (4, 128, 4096) bf16 (prefill)": _time_all_reduce(
+            torch.ones((4, 128, 4096), dtype=torch.bfloat16, device=dev))}
+    del params, rec
+    torch.cuda.empty_cache()
+    cfg2, params2, trace2, weights2 = _parity_setup(dev)
+    for mode in ("padded", "bucketed"):
+        eng, reqs, _ = serve(cfg2, params2, trace2, weights=weights2,
+                             bank_mode=mode, lora_kernel="sgmv", max_batch=8,
+                             mesh=mesh, device=dev)
+        out["fp32"][mode] = [r.output for r in reqs]
+        out["fp32_logits"][mode] = _group_logits(cfg2, eng, trace2, 24,
+                                                 mesh=mesh)
+        del eng
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_tp(cfg, tp_ref, fp32_ref):
+    """Phase 6 over TP ranks on this card; ``fp32_ref`` is phase 5's
+    (tokens, prefill logits). Returns (rank 0's launch counts, rank 0's
+    copied kernel calls)."""
+    from repro_torch.launch.mesh import spawn
+    per_pass = len(cfg.lora.targets) * cfg.n_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_tp_rank, TP, backend="gloo", init_file=Path(tmp) / "init",
+              args=(TP, tmp))
+        outs = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(TP)]
+        calls = torch.load(Path(tmp) / "calls.pt", weights_only=False)
+    for r, o in enumerate(outs):
+        assert o["flash_heads"] == cfg.n_heads // TP, o["flash_heads"]
+        for mode in ("padded", "bucketed"):
+            b = o["bf16"][mode]
+            split = ("B3a", "B3b") if mode == "padded" else ("B4a", "B4b")
+            want = {kid: 0 for kid in KERNELS}
+            want.update({kid: per_pass * b["passes"] for kid in split})
+            want["B5"] = cfg.n_layers * b["prefills"]
+            assert b["grew"] == want, (r, mode, b["grew"], want)
+            assert all(len(t) == 16 for t in b["tokens"])
+            assert torch.isfinite(b["logits"]).all()
+            if r == 0:
+                s = b["summary"]
+                log(f"tp: rank 0 mode={mode} finished={s['finished']}/8 "
+                    f"passes={b['passes']} all_reduces={b['reduces']} "
+                    f"launches {split[0]}={b['grew'][split[0]]} "
+                    f"{split[1]}={b['grew'][split[1]]} B5={b['grew']['B5']}"
+                    f" ({o['flash_heads']} local heads)"
+                    f" p50_ttft_ms={s['p50_ttft'] * 1e3:.2f}"
+                    f" mean_tbt_ms={s['mean_tbt'] * 1e3:.3f}"
+                    f" decode_tok_s={s['decode_tok_s']:.1f}"
+                    f" wall_s={s['wall_s']:.3f}")
+                continue
+            a = outs[0]["bf16"][mode]
+            assert b["tokens"] == a["tokens"], f"ranks disagree ({mode})"
+            assert torch.equal(b["logits"], a["logits"]), mode
+            assert torch.equal(o["fp32_logits"][mode],
+                               outs[0]["fp32_logits"][mode]), mode
+        assert o["fp32"] == outs[0]["fp32"], "ranks disagree (fp32)"
+    log(f"tp: {TP} ranks emit the same tokens and logits")
+    # at tp = 1 B1 and B2 agree bit for bit; at tp = 2 so do B3a->B3b and
+    # B4a->B4b, through the same all-reduce of the same h columns
+    pad, bkt = outs[0]["bf16"]["padded"], outs[0]["bf16"]["bucketed"]
+    assert pad["tokens"] == bkt["tokens"], "tp = 2 modes' tokens differ"
+    assert torch.equal(pad["logits"], bkt["logits"]), \
+        "tp = 2 modes' logits differ"
+    log("tp: padded (B3a/B3b) and bucketed (B4a/B4b) emit the same tokens "
+        "and first-prefill logits, bit for bit")
+    fp32_tokens, fp32_logits = fp32_ref
+    for mode in ("padded", "bucketed"):
+        got = outs[0]["bf16"][mode]
+        ref_tokens, ref_logits = tp_ref[mode]
+        err = (got["logits"] - ref_logits).abs().max().item()
+        scale = ref_logits.abs().max().item()
+        err32 = (got["logits"] - tp_ref["fp32"]).abs().max().item()
+        same = sum(a == b for a, b in zip(got["tokens"], ref_tokens))
+        agree = sum(x == y for a, b in zip(got["tokens"], ref_tokens)
+                    for x, y in zip(a, b))
+        elementwise = torch.allclose(got["logits"], ref_logits, atol=5e-2,
+                                     rtol=5e-2)
+        log(f"tp: bf16 {mode} first prefill logits vs tp = 1: max abs diff "
+            f"{err:.4e} of max |logit| {scale:.4f} ({err / scale:.3%}; "
+            f"elementwise allclose 5e-2: {elementwise}); first-token "
+            f"argmax agree "
+            f"{(got['logits'].argmax(-1) == ref_logits.argmax(-1)).tolist()};"
+            f" {same}/8 requests and {agree}/128 tokens as tp = 1; vs "
+            f"fp32 on the same weights: max abs diff {err32:.4e} "
+            f"({err32 / scale:.3%})")
+        assert err <= 5e-2 * scale, (mode, err, scale)
+        assert err32 <= 5e-2 * scale, (mode, err32, scale)
+        assert outs[0]["fp32"][mode] == fp32_tokens, mode
+        err = (outs[0]["fp32_logits"][mode] - fp32_logits).abs().max().item()
+        log(f"tp: fp32 2 layers {mode}: prefill logits max abs diff vs tp = "
+            f"1 {err:.3e} (tol 1e-3)")
+        assert err <= 1e-3, (mode, err)
+    log("tp: fp32 2 layers, both modes: tp = 2 tokens == tp = 1 tokens")
+    for name, ms in outs[0]["all_reduce_ms"].items():
+        log(f"tp: all_reduce {name}: {ms:.4f} ms (gloo, {TP} ranks on one "
+            "card, host clock)")
+    return outs[0]["launches"], calls
+
+
+def phase_split(dev, cfg, tp_calls, b2_calls):
+    """Phase 7: every kernel of the tp = 2 path against its plain version
+    on rank 0's calls, timed; B4a then B4b == B2 on phase 2's B2 calls.
+    B4a/B4b, which run on this path only, keep the ``decode`` and
+    ``prefill`` layout names; B3a, B3b and B5, whose tp = 1 calls phase 3
+    checked, are filed under ``tp2-...``."""
+    from repro_torch.kernels import sgmv
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    results = {}
+    d_local = cfg.d_model // TP
+    for kid in ("B4a", "B4b", "B3a", "B3b", "B5"):
+        name = KERNELS[kid][0]
+        for layout in ("decode", "prefill"):
+            args, kw, dest = _move(tp_calls[(name, layout)], dev)
+            if kid == "B5":
+                q = args[0]
+                assert q.shape[1] == cfg.n_heads // TP, q.shape
+                label = f"tp{TP}-prefill-S{q.shape[2]}"
+            else:
+                W = args[1][0] if kid in ("B4a", "B4b") else args[1]
+                assert (W.shape[1] if kid in ("B4a", "B3a")
+                        else W.shape[-1]) == d_local, W.shape
+                label = layout if kid in ("B4a", "B4b") else \
+                    f"tp{TP}-{layout}"
+            _check_and_time(kid, label, args, kw, dest, flush, results)
+    del flush
+    for layout in ("decode", "prefill"):
+        (x_pad, banks, bkt, row), _, _ = b2_calls[layout]
+        for dtype in (torch.bfloat16, torch.float32):
+            x, bk = _cast((x_pad, banks), dtype)
+            n = x.shape[0] // BLOCK_T * BLOCK_T
+            h = sgmv.sgmv_multibank_shrink(x, [A for A, _ in bk], bkt, row)
+            y = sgmv.sgmv_multibank_expand(h, [B for _, B in bk], bkt, row)
+            assert torch.equal(y[:n], sgmv.sgmv_multibank_blocks(
+                x, bk, bkt, row)[:n]), (layout, dtype)
+        log(f"split: B4a then B4b == B2 bit for bit on phase 2's {layout} "
+            f"B2 call x={tuple(x_pad.shape)}, bf16 and fp32")
+    return results
 
 
 def main() -> int:
@@ -530,7 +928,7 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f}s")
 
     t0 = time.monotonic()
-    cfg, launches, calls, banks = phase_engine(dev)
+    cfg, launches, calls, banks, tp_ref = phase_engine(dev)
     log(f"phase engine: {time.monotonic() - t0:.1f}s")
     t0 = time.monotonic()
     kres = phase_kernels(dev, calls)
@@ -538,11 +936,23 @@ def main() -> int:
     t0 = time.monotonic()
     launches.update(phase_unfused(dev, cfg, calls, banks))
     log(f"phase unfused: {time.monotonic() - t0:.1f}s")
+    b2_calls = {layout: calls[("sgmv_multibank_blocks", layout)]
+                for layout in ("decode", "prefill")}
     del calls, banks
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    phase_parity(dev)
+    fp32_ref = phase_parity(dev)
     log(f"phase parity: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    tp_launches, tp_calls = phase_tp(cfg, tp_ref, fp32_ref)
+    # B4a/B4b run on the tensor-parallel path only; the other kernels
+    # keep the counts of their own paths (phases 2 and 4)
+    launches.update({kid: tp_launches[kid] for kid in ("B4a", "B4b")})
+    log(f"phase tp: {time.monotonic() - t0:.1f}s; rank 0's launches "
+        f"{tp_launches}")
+    t0 = time.monotonic()
+    kres.update(phase_split(dev, cfg, tp_calls, b2_calls))
+    log(f"phase split: {time.monotonic() - t0:.1f}s")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

@@ -14,6 +14,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.lora.bank import LoRABank
 from repro_torch.models.model import DenseLM, init_params
+from repro_torch.serving.sharding import PARAM_SPLIT
 
 
 def _t(a, device, dtype=None):
@@ -67,6 +68,21 @@ def bank_from_numpy(cfg, fields, *, device="cuda", dtype=None) -> LoRABank:
                     bucket_ranks=tuple(fields.get("bucket_ranks", ())),
                     bucket_counts=tuple(fields.get("bucket_counts", ())),
                     **idx)
+
+
+def check_shards(full: DenseLM, shards) -> None:
+    """Raise unless the ranks' sliced modules put ``full`` back together:
+    ``shards`` holds each rank's ``{name: tensor or array}`` (its
+    ``named_parameters()``), in rank order. Split parameters are joined
+    along their axis (``serving.sharding.PARAM_SPLIT``); replicated ones
+    must equal the full module's on every rank."""
+    for name, want in full.named_parameters():
+        parts = [torch.as_tensor(sh[name]) for sh in shards]
+        axis = PARAM_SPLIT.get(name.rsplit(".", 1)[-1])
+        for g in parts if axis is None else [torch.cat(parts, dim=axis)]:
+            if not torch.equal(g.to(want.device, want.dtype), want.detach()):
+                raise ValueError(f"{name}: the ranks' slices do not put "
+                                 "the full parameter back together")
 
 
 def adapter_weights_from_numpy(w, *, device="cpu", dtype=None):

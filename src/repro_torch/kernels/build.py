@@ -109,6 +109,14 @@ def load_library() -> ctypes.CDLL:
             lib.sgmv_expand_launch.argtypes = [
                 i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             lib.sgmv_expand_launch.restype = i32
+            lib.sgmv_multibank_shrink_launch.argtypes = [
+                i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp,
+                vp, vp, i32, i32, i32, i32, vp]
+            lib.sgmv_multibank_shrink_launch.restype = i32
+            lib.sgmv_multibank_expand_launch.argtypes = [
+                i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp,
+                vp, vp, i32, i32, i32, i32, i32, vp]
+            lib.sgmv_multibank_expand_launch.restype = i32
             lib.flash_mha_launch.argtypes = [
                 i32, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
                 i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp]

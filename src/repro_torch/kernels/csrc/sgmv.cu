@@ -13,6 +13,15 @@
 //    sgmv.py:sgmv_expand (pallas_call at :102, body _expand_kernel :56):
 //    the unfused pair, h = x_blk @ A[aid] written to device memory as
 //    (T_pad, r) in x's type, then y = h_blk @ B[aid].
+// B4a sgmv_multibank_shrink_kernel replaces sgmv.py:sgmv_multibank_shrink
+//    (pallas_call at :414, body _make_multibank_shrink_kernel :363) and
+//    B4b sgmv_multibank_expand_kernel replaces sgmv_multibank_expand
+//    (pallas_call at :487, body _make_multibank_expand_kernel :428): the
+//    split pair of B2 for a tensor-parallel engine. B4a writes h (T_pad,
+//    max_r) in x's type, each block at its bucket's rank r_b and columns
+//    r_b..max_r zero (they enter the all-reduce across ranks, which sums
+//    the partial h of each rank's d slice); B4b expands h[:, :r_b] on the
+//    rank's own d_out columns.
 //
 // Contract (B1, B2; B3a and B3b are its two halves). x_pad (T_pad, d)
 // is segment-blocked by ops.prepare_segments*: block i holds block_t rows
@@ -44,7 +53,9 @@
 // results. All four kernels run the same two device functions,
 // shrink_block and expand_block, so an output's sums and their FMA
 // contraction are the same code in each: B3a then B3b equals B1 bit for
-// bit, and the per-bucket host loop over B3a/B3b equals B2. B3b tiles the
+// bit, the per-bucket host loop over B3a/B3b equals B2, and B4a then B4b
+// equals B2 (at one rank; across ranks the all-reduce reorders the
+// d-sum). B3b and B4b tile the
 // output columns over a second grid dimension (block_o columns a thread
 // block, as the TPU's j dimension), which spreads a token block over
 // more SMs and changes no sum. CUDA cores in fp32 only: tensor cores,
@@ -248,8 +259,73 @@ sgmv_expand_kernel(const T* __restrict__ h, const T* __restrict__ B,
                   min(col0 + block_o, d_out));
 }
 
+// B4a. Each token block at its bucket's rank r; h (T_pad, max_r) gets the
+// block's shrink in columns < r and explicit zeros above, because every
+// column enters the all-reduce across ranks.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sgmv_multibank_shrink_kernel(const T* __restrict__ x, BankSet banks,
+                             const int* __restrict__ block_bucket,
+                             const int* __restrict__ block_row,
+                             T* __restrict__ h, int block_t, int d,
+                             int max_r) {
+  __shared__ float hs[kMaxBlockT][kMaxRank];
+  const int i = blockIdx.x;
+  const int bkt = block_bucket[i];
+  const int r = banks.rank[bkt];
+  const T* a = static_cast<const T*>(banks.A[bkt]) +
+               (size_t)block_row[i] * d * r;
+  shrink_block<T>(x + (size_t)i * block_t * d, a, hs, block_t, d, r);
+  T* h_blk = h + (size_t)i * block_t * max_r;
+  for (int e = threadIdx.x; e < block_t * max_r; e += kThreads) {
+    const int t = e / max_r, c = e % max_r;
+    h_blk[e] = from_f<T>(c < r ? hs[t][c] : 0.f);  // exact: hs holds T
+  }
+}
+
+// B4b. Grid (token blocks, column tiles of block_o): h[:, :r] of the
+// block's bucket times its B on the rank's d_out columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sgmv_multibank_expand_kernel(const T* __restrict__ h, BankSet banks,
+                             const int* __restrict__ block_bucket,
+                             const int* __restrict__ block_row,
+                             T* __restrict__ out, int block_t, int max_r,
+                             int d_out, int block_o) {
+  __shared__ float hs[kMaxBlockT][kMaxRank];
+  const int i = blockIdx.x;
+  const int bkt = block_bucket[i];
+  const int r = banks.rank[bkt];
+  const T* h_blk = h + (size_t)i * block_t * max_r;
+  for (int e = threadIdx.x; e < block_t * r; e += kThreads)
+    hs[e / r][e % r] = to_f(h_blk[(size_t)(e / r) * max_r + e % r]);
+  __syncthreads();
+  const int col0 = blockIdx.y * block_o;
+  expand_block<T>(hs, static_cast<const T*>(banks.B[bkt]) +
+                          (size_t)block_row[i] * r * d_out,
+                  out + (size_t)i * block_t * d_out, block_t, r, d_out, col0,
+                  min(col0 + block_o, d_out));
+}
+
 bool shape_ok(int block_t, int r) {
   return block_t >= 1 && block_t <= kMaxBlockT && r >= 1 && r <= kMaxRank;
+}
+
+// B4a / B4b take one bank pointer array (A for the shrink, B for the
+// expand) and the buckets' ranks, host arrays of n_buckets entries; every
+// rank must lie in 1..max_r, max_r <= 128.
+int bank_set(const void* const* ptrs, const int* ranks, int n_buckets,
+             int block_t, int max_r, bool is_b, BankSet* banks) {
+  if (n_buckets < 1 || n_buckets > kMaxBuckets ||
+      !shape_ok(block_t, max_r))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int b = 0; b < n_buckets; ++b) {
+    if (!shape_ok(block_t, ranks[b]) || ranks[b] > max_r)
+      return static_cast<int>(cudaErrorInvalidValue);
+    (is_b ? banks->B : banks->A)[b] = ptrs[b];
+    banks->rank[b] = ranks[b];
+  }
+  return 0;
 }
 
 }  // namespace
@@ -360,6 +436,64 @@ extern "C" int sgmv_expand_launch(int dtype, const void* h, const void* B,
         static_cast<const __nv_bfloat16*>(h),
         static_cast<const __nv_bfloat16*>(B), ba,
         static_cast<__nv_bfloat16*>(out), block_t, r, d_out, block_o);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+extern "C" int sgmv_multibank_shrink_launch(
+    int dtype, const void* x, const void* const* A_ptrs, const int* ranks,
+    int n_buckets, const void* block_bucket, const void* block_row, void* h,
+    int nblocks, int block_t, int d, int max_r, void* stream) {
+  if (nblocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  BankSet banks{};
+  if (const int err = bank_set(A_ptrs, ranks, n_buckets, block_t, max_r,
+                               false, &banks))
+    return err;
+  if (nblocks == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* bb = static_cast<const int*>(block_bucket);
+  const int* br = static_cast<const int*>(block_row);
+  if (dtype == 0) {
+    sgmv_multibank_shrink_kernel<float><<<nblocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), banks, bb, br, static_cast<float*>(h),
+        block_t, d, max_r);
+  } else if (dtype == 1) {
+    sgmv_multibank_shrink_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), banks, bb, br,
+        static_cast<__nv_bfloat16*>(h), block_t, d, max_r);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sgmv_multibank_expand_launch(
+    int dtype, const void* h, const void* const* B_ptrs, const int* ranks,
+    int n_buckets, const void* block_bucket, const void* block_row,
+    void* out, int nblocks, int block_t, int max_r, int d_out, int block_o,
+    void* stream) {
+  if (nblocks < 0 || d_out < 1 || block_o < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BankSet banks{};
+  if (const int err = bank_set(B_ptrs, ranks, n_buckets, block_t, max_r,
+                               true, &banks))
+    return err;
+  if (nblocks == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* bb = static_cast<const int*>(block_bucket);
+  const int* br = static_cast<const int*>(block_row);
+  const dim3 grid(nblocks, (d_out + block_o - 1) / block_o);
+  if (dtype == 0) {
+    sgmv_multibank_expand_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(h), banks, bb, br, static_cast<float*>(out),
+        block_t, max_r, d_out, block_o);
+  } else if (dtype == 1) {
+    sgmv_multibank_expand_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(h), banks, bb, br,
+        static_cast<__nv_bfloat16*>(out), block_t, max_r, d_out, block_o);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

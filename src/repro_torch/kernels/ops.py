@@ -10,6 +10,10 @@ its own rank in one launch. The segment layout is computed on the device
 with no host sync (stable argsort, scatter-add counts, cumsum), so the
 engine's k-step decode keeps one sync per k tokens.
 
+``segment_layout`` / ``bucketed_layout`` lay a token batch out for a
+padded / bucketed bank; the dispatchers here and the tensor-parallel
+forms in ``lora/batched.py`` share them.
+
 ``sgmv`` (and ``bgmv``, its block_t = 1 decode form) computes the same
 delta on the unfused pair B3a/B3b, bit for bit equal to ``sgmv_fused``;
 ``sgmv_rank_bucketed`` is the host-loop oracle that ``sgmv_bucketed_fused``
@@ -95,16 +99,39 @@ def scatter_rows(x, dest, T_pad):
     return x_pad
 
 
+def segment_layout(x, token_adapter, n_adapters: int, block_t: int):
+    """x's rows in the padded bank's layout: (dest, block_adapter,
+    x_pad)."""
+    dest, block_adapter = prepare_segments(token_adapter, n_adapters,
+                                           block_t)
+    x_pad = scatter_rows(x, dest, padded_len(x.shape[0], n_adapters,
+                                             block_t))
+    return dest, block_adapter, x_pad
+
+
+def bucketed_layout(x, token_adapter, adapter_bucket, adapter_local,
+                    n_buckets: int, block_t: int):
+    """x's rows in a rank-bucketed bank's bucket-major layout: (dest,
+    block_bucket, block_row, x_pad). adapter_local=None: every bucket
+    bank is indexed by the global adapter id."""
+    Na = adapter_bucket.shape[0]
+    dest, block_adapter = prepare_segments_bucketed(
+        token_adapter, adapter_bucket, Na, n_buckets, block_t)
+    local = torch.arange(Na, dtype=torch.int32, device=x.device) \
+        if adapter_local is None else adapter_local.to(torch.int32)
+    ba = block_adapter.long()
+    x_pad = scatter_rows(x, dest, padded_len(x.shape[0], Na, block_t))
+    return dest, adapter_bucket.to(torch.int32)[ba], local[ba], x_pad
+
+
 def sgmv(x, A, B, token_adapter, *, scaling: float = 1.0,
          block_t: int = 16):
     """x: (T, d_in); A: (Na, d_in, r); B: (Na, r, d_out); token_adapter:
     (T,) int. The LoRA delta on the unfused pair: kernel B3a writes the
     (T_pad, r) intermediate, kernel B3b expands it. Returns (T, d_out),
     bit for bit ``sgmv_fused``'s."""
-    T = x.shape[0]
-    Na = A.shape[0]
-    dest, block_adapter = prepare_segments(token_adapter, Na, block_t)
-    x_pad = scatter_rows(x, dest, padded_len(T, Na, block_t))
+    dest, block_adapter, x_pad = segment_layout(x, token_adapter,
+                                                A.shape[0], block_t)
     h = sgmv_shrink(x_pad, A, block_adapter, block_t=block_t)
     y_pad = sgmv_expand(h, B, block_adapter, block_t=block_t)
     return y_pad[dest.long()] * scaling
@@ -153,10 +180,8 @@ def sgmv_fused(x, A, B, token_adapter, *, scaling: float = 1.0,
     """x: (T, d_in); A: (Na, d_in, r); B: (Na, r, d_out); token_adapter:
     (T,) int. The LoRA delta on kernel B1, one launch. Returns
     (T, d_out)."""
-    T = x.shape[0]
-    Na = A.shape[0]
-    dest, block_adapter = prepare_segments(token_adapter, Na, block_t)
-    x_pad = scatter_rows(x, dest, padded_len(T, Na, block_t))
+    dest, block_adapter, x_pad = segment_layout(x, token_adapter,
+                                                A.shape[0], block_t)
     y_pad = sgmv_fused_blocks(x_pad, A, B, block_adapter, block_t=block_t)
     return y_pad[dest.long()] * scaling
 
@@ -172,17 +197,9 @@ def sgmv_bucketed_fused(x, banks, token_adapter, adapter_bucket,
     bucket bank is indexed by the global id). ``block_t`` is fixed (16 by
     default); the JAX package's residency plan is a TPU VMEM plan and
     changes no number, so it has no counterpart here."""
-    T = x.shape[0]
     banks = tuple((A, B) for A, B in banks)
-    Na = adapter_bucket.shape[0]
-    dest, block_adapter = prepare_segments_bucketed(
-        token_adapter, adapter_bucket, Na, len(banks), block_t)
-    local = torch.arange(Na, dtype=torch.int32, device=x.device) \
-        if adapter_local is None else adapter_local.to(torch.int32)
-    ba = block_adapter.long()
-    block_bucket = adapter_bucket.to(torch.int32)[ba]
-    block_row = local[ba]
-    x_pad = scatter_rows(x, dest, padded_len(T, Na, block_t))
+    dest, block_bucket, block_row, x_pad = bucketed_layout(
+        x, token_adapter, adapter_bucket, adapter_local, len(banks), block_t)
     y_pad = sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row,
                                   block_t=block_t)
     return y_pad[dest.long()] * scaling

@@ -12,6 +12,12 @@ and their plain-torch versions.
   (T_pad, r) tensor in x's type, then y = h_blk @ B[aid]. The kernels
   share B1's shrink and expand code, so the pair gives B1's output bit
   for bit.
+* ``sgmv_multibank_shrink`` (B4a) and ``sgmv_multibank_expand`` (B4b)
+  replace the split multibank pair of the same names, B2 cut in two for
+  a tensor-parallel engine: h (T_pad, max_r) in x's type, each block at
+  its bucket's rank and the columns above it zero (they enter the
+  all-reduce across ranks), then y = h_blk[:, :r_b] @ B_b[row]. At one
+  rank the pair gives B2's output bit for bit.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -69,6 +75,16 @@ def sgmv_fused_blocks_ref(x_pad, A, B, block_adapter, *, block_t: int = 16):
     return sgmv_expand_blocks_ref(h, B, block_adapter, block_t=block_t)
 
 
+def _bucket_rows(T_pad, block_bucket, block_row, b, block_t, device):
+    """Bucket b's blocks: (rows of other buckets' blocks clamped to 0, a
+    (T_pad,) mask of the rows in bucket b's whole blocks)."""
+    nblocks = T_pad // block_t
+    sel = block_bucket[:nblocks].long() == b
+    keep = torch.zeros(T_pad, dtype=torch.bool, device=device)
+    keep[:nblocks * block_t] = sel.repeat_interleave(block_t)
+    return torch.where(sel, block_row[:nblocks].long(), 0), keep
+
+
 def sgmv_multibank_blocks_ref(x_pad, banks, block_bucket, block_row, *,
                               block_t: int = 16):
     """Plain version of B2. banks: sequence of (A_b (Na_b, d, r_b),
@@ -76,20 +92,44 @@ def sgmv_multibank_blocks_ref(x_pad, banks, block_bucket, block_row, *,
     block_row: (T_pad // block_t,) int. Each bucket runs over every block
     (rows of other buckets clamp to row 0, as the Pallas index maps do)
     and keeps the blocks that are its own: no host sync."""
-    T_pad = x_pad.shape[0]
-    nblocks = T_pad // block_t
-    bkt = block_bucket[:nblocks].long()
-    row = block_row[:nblocks].long()
-    out = x_pad.new_zeros((T_pad, banks[0][1].shape[-1]))
+    out = x_pad.new_zeros((x_pad.shape[0], banks[0][1].shape[-1]))
     for b, (A, B) in enumerate(banks):
-        sel = bkt == b
-        keep = torch.zeros(T_pad, dtype=torch.bool, device=x_pad.device)
-        keep[:nblocks * block_t] = sel.repeat_interleave(block_t)
-        y = sgmv_fused_blocks_ref(x_pad, A, B, torch.where(sel, row, 0),
-                                  block_t=block_t)
+        row, keep = _bucket_rows(x_pad.shape[0], block_bucket, block_row, b,
+                                 block_t, x_pad.device)
+        y = sgmv_fused_blocks_ref(x_pad, A, B, row, block_t=block_t)
         out = torch.where(keep[:, None], y, out)
     return out
 
+
+
+def sgmv_multibank_shrink_blocks_ref(x_pad, A_banks, block_bucket,
+                                     block_row, *, block_t: int = 16):
+    """Plain version of B4a. x_pad: (T_pad, d_local); A_banks: sequence of
+    A_b (Na_b, d_local, r_b). Returns h (T_pad, max_r): each whole block's
+    shrink at its bucket's rank, zeros elsewhere."""
+    max_r = max(A.shape[-1] for A in A_banks)
+    h = x_pad.new_zeros((x_pad.shape[0], max_r))
+    for b, A in enumerate(A_banks):
+        row, keep = _bucket_rows(x_pad.shape[0], block_bucket, block_row, b,
+                                 block_t, x_pad.device)
+        y = _block_products(x_pad, A, row, block_t)
+        h[:, :A.shape[-1]] = torch.where(keep[:, None], y,
+                                         h[:, :A.shape[-1]])
+    return h
+
+
+def sgmv_multibank_expand_blocks_ref(h_pad, B_banks, block_bucket,
+                                     block_row, *, block_t: int = 16):
+    """Plain version of B4b. h_pad: (T_pad, max_r); B_banks: sequence of
+    B_b (Na_b, r_b, d_out_local). Returns (T_pad, d_out_local)."""
+    out = h_pad.new_zeros((h_pad.shape[0], B_banks[0].shape[-1]))
+    for b, B in enumerate(B_banks):
+        row, keep = _bucket_rows(h_pad.shape[0], block_bucket, block_row, b,
+                                 block_t, h_pad.device)
+        y = _block_products(h_pad[:, :B.shape[1]].contiguous(), B, row,
+                            block_t)
+        out = torch.where(keep[:, None], y, out)
+    return out
 
 def _check_x(x_pad, block_t):
     if x_pad.device.type != "cuda":
@@ -141,6 +181,17 @@ def _launch(fn_name, *args):
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
 
 
+def _bucket_ptrs(banks, rank_axis):
+    nb = len(banks)
+    return ((ctypes.c_void_p * nb)(*[W.data_ptr() for W in banks]),
+            (ctypes.c_int * nb)(*[W.shape[rank_axis] for W in banks]))
+
+
+def _check_n_buckets(banks):
+    if not 1 <= len(banks) <= MAX_BUCKETS:
+        raise ValueError(f"{len(banks)} buckets outside 1..{MAX_BUCKETS}")
+
+
 def sgmv_fused_blocks(x_pad, A, B, block_adapter, *, block_t: int = 16):
     """B1: fused shrink+expand over a segment-blocked layout, one launch.
     Returns (T_pad, d_out); on CUDA rows past the last whole block are
@@ -179,8 +230,7 @@ def sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row, *,
                                          block_row, block_t=block_t)
     _check_x(x_pad, block_t)
     banks = [(A, B) for A, B in banks]
-    if not 1 <= len(banks) <= MAX_BUCKETS:
-        raise ValueError(f"{len(banks)} buckets outside 1..{MAX_BUCKETS}")
+    _check_n_buckets(banks)
     d_out = banks[0][1].shape[-1]
     for A, B in banks:
         _check_bank(x_pad, A, B)
@@ -191,9 +241,8 @@ def sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row, *,
     _check_index(x_pad, block_bucket, nblocks, "block_bucket")
     _check_index(x_pad, block_row, nblocks, "block_row")
     nb = len(banks)
-    a_ptrs = (ctypes.c_void_p * nb)(*[A.data_ptr() for A, _ in banks])
-    b_ptrs = (ctypes.c_void_p * nb)(*[B.data_ptr() for _, B in banks])
-    ranks = (ctypes.c_int * nb)(*[A.shape[-1] for A, _ in banks])
+    a_ptrs, ranks = _bucket_ptrs([A for A, _ in banks], 2)
+    b_ptrs, _ = _bucket_ptrs([B for _, B in banks], 1)
     out = torch.empty((T_pad, d_out), dtype=x_pad.dtype, device=x_pad.device)
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -264,3 +313,78 @@ def sgmv_expand(h_pad, B, block_adapter, *, block_t: int = 16,
 
 
 sgmv_expand.launches = 0
+
+
+def sgmv_multibank_shrink(x_pad, A_banks, block_bucket, block_row, *,
+                          block_t: int = 16):
+    """B4a: h = x_blk @ A_b[row] for every whole block, at its bucket's
+    rank r_b, columns r_b..max_r zero. A_banks: sequence of A_b (Na_b,
+    d_local, r_b), at most 8. Returns (T_pad, max_r) in x's type; on CUDA
+    rows past the last whole block are left unwritten."""
+    A_banks = list(A_banks)
+    if x_pad.device.type == "cpu":
+        return sgmv_multibank_shrink_blocks_ref(x_pad, A_banks, block_bucket,
+                                                block_row, block_t=block_t)
+    _check_x(x_pad, block_t)
+    _check_n_buckets(A_banks)
+    for A in A_banks:
+        _check_weight(x_pad, A, "A", x_pad.shape[1], 2)
+    T_pad, d = x_pad.shape
+    nblocks = T_pad // block_t
+    _check_index(x_pad, block_bucket, nblocks, "block_bucket")
+    _check_index(x_pad, block_row, nblocks, "block_row")
+    max_r = max(A.shape[-1] for A in A_banks)
+    a_ptrs, ranks = _bucket_ptrs(A_banks, 2)
+    h = torch.empty((T_pad, max_r), dtype=x_pad.dtype, device=x_pad.device)
+    with torch.cuda.device(x_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("sgmv_multibank_shrink_launch", _DTYPE_CODE[x_pad.dtype],
+                x_pad.data_ptr(), a_ptrs, ranks, len(A_banks),
+                block_bucket.data_ptr(), block_row.data_ptr(), h.data_ptr(),
+                nblocks, block_t, d, max_r, stream)
+    sgmv_multibank_shrink.launches += 1
+    return h
+
+
+sgmv_multibank_shrink.launches = 0
+
+
+def sgmv_multibank_expand(h_pad, B_banks, block_bucket, block_row, *,
+                          block_t: int = 16, block_o: int = 2048):
+    """B4b: y = h_blk[:, :r_b] @ B_b[row] for every whole block, the
+    output columns in tiles of ``block_o`` (a second grid dimension, the
+    last tile guarded: no padding of d_out). B_banks: sequence of B_b
+    (Na_b, r_b, d_out_local) sharing d_out_local, r_b <= max_r. Returns
+    (T_pad, d_out_local) in h's type; on CUDA rows past the last whole
+    block are left unwritten."""
+    B_banks = list(B_banks)
+    if h_pad.device.type == "cpu":
+        return sgmv_multibank_expand_blocks_ref(h_pad, B_banks, block_bucket,
+                                                block_row, block_t=block_t)
+    _check_x(h_pad, block_t)
+    T_pad, max_r = h_pad.shape
+    _check_n_buckets(B_banks)
+    d_out = B_banks[0].shape[-1]
+    for B in B_banks:
+        _check_weight(h_pad, B, "B", B.shape[1], 1)
+        if B.shape[1] > max_r or B.shape[-1] != d_out:
+            raise ValueError(f"B {tuple(B.shape)} does not fit h "
+                             f"{tuple(h_pad.shape)} and d_out {d_out}")
+    if block_o < 1:
+        raise ValueError(f"block_o={block_o} must be positive")
+    nblocks = T_pad // block_t
+    _check_index(h_pad, block_bucket, nblocks, "block_bucket")
+    _check_index(h_pad, block_row, nblocks, "block_row")
+    b_ptrs, ranks = _bucket_ptrs(B_banks, 1)
+    out = torch.empty((T_pad, d_out), dtype=h_pad.dtype, device=h_pad.device)
+    with torch.cuda.device(h_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("sgmv_multibank_expand_launch", _DTYPE_CODE[h_pad.dtype],
+                h_pad.data_ptr(), b_ptrs, ranks, len(B_banks),
+                block_bucket.data_ptr(), block_row.data_ptr(), out.data_ptr(),
+                nblocks, block_t, max_r, d_out, min(block_o, d_out), stream)
+    sgmv_multibank_expand.launches += 1
+    return out
+
+
+sgmv_multibank_expand.launches = 0

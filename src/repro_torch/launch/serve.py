@@ -12,16 +12,27 @@ from ``--seed``, the adapters' B nonzero (a fresh bank's B is zero, which
 would make every delta 0). ``--profile`` traces the served run with
 ``torch.profiler`` and prints device time by kernel and the device's busy
 share of the run.
+
+``--mesh 1,TP`` serves on a tensor-parallel engine of TP ranks, one
+process each, spawned here (``launch.mesh.spawn``) and meeting over
+``--backend`` (nccl: one card per rank; gloo: also on the CPU, or several
+ranks on one card). Every rank serves the same trace; rank 0 prints the
+report. Example, on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
+      --device cpu --mesh 1,2 --backend gloo
 """
 from __future__ import annotations
 
 import argparse
 import random
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.mesh import make_engine_mesh, spawn
 from repro_torch.models import model as M
 from repro_torch.serving import Request, ServingEngine
 
@@ -42,18 +53,20 @@ def build_trace(cfg, n_requests: int, prompt_lens, max_new: int, seed: int):
 
 
 def serve(cfg, params, trace, *, bank_mode="padded", lora_kernel="sgmv",
-          decode_block=1, max_batch=8, seed=0, weights=None,
+          decode_block=1, max_batch=8, seed=0, weights=None, mesh=None,
           device="cuda"):
     """Serve ``trace`` [(adapter, prompt, max_new)] on one engine until it
-    drains. ``weights`` ({adapter: {target: {"A", "B"}}}, optional) are
-    installed over the bank's own (whose B is zero) before serving.
-    Returns (engine, requests, summary dict)."""
+    drains. ``weights`` ({adapter: {target: {"A", "B"}}}, optional, full
+    width) are installed over the bank's own (whose B is zero) before
+    serving. ``mesh``: this rank's ``TensorParallel`` (every rank calls
+    ``serve`` with the same arguments). Returns (engine, requests,
+    summary dict)."""
     adapters = {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in trace}
     max_len = max(len(p) + n for _, p, n in trace) + 8
     eng = ServingEngine(cfg, params, adapters, max_batch=max_batch,
                         max_len=max_len, seed=seed, bank_mode=bank_mode,
                         decode_block=decode_block, lora_kernel=lora_kernel,
-                        device=device)
+                        mesh=mesh, device=device)
     for aid, w in (weights or {}).items():
         eng.install_adapter(aid, adapters[aid], w)
     dev = torch.device(device)
@@ -114,6 +127,49 @@ def profiled(fn, device):
     return out
 
 
+def _serve_rank(rank: int, dp: int, tp: int, args) -> None:
+    """Build the model and serve the trace as rank ``rank`` of a (dp, tp)
+    engine; rank 0 prints the report."""
+    mesh = make_engine_mesh(dp, tp, device=args.device)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    cfg = (get_config if args.config == "full" else get_smoke_config)(
+        "llama-7b-paper")
+    dtype = getattr(torch, args.dtype)
+    params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
+    trace = build_trace(cfg, args.requests,
+                        [int(v) for v in args.prompt_lens.split(",")],
+                        args.max_new, args.seed)
+    weights = adapter_weights(
+        cfg, {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in trace},
+        dtype=dtype, device=device, seed=args.seed)
+
+    def run():
+        return serve(cfg, params, trace, bank_mode=args.bank_mode,
+                     lora_kernel=args.lora_kernel,
+                     decode_block=args.decode_block,
+                     max_batch=args.max_batch, seed=args.seed,
+                     weights=weights, mesh=mesh, device=device)
+
+    profile = args.profile and rank == 0
+    eng, reqs, s = profiled(run, device) if profile else run()
+    if rank != 0:
+        return
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"model={cfg.name} layers={cfg.n_layers} dtype={args.dtype} "
+          f"device={where} mesh={dp},{tp} bank_mode={args.bank_mode} "
+          f"lora_kernel={args.lora_kernel} decode_block={args.decode_block}")
+    print(f"finished={s['finished']}/{len(reqs)} "
+          f"p50_ttft={s['p50_ttft'] * 1e3:.1f}ms "
+          f"p95_ttft={s['p95_ttft'] * 1e3:.1f}ms "
+          f"mean_tbt={s['mean_tbt'] * 1e3:.2f}ms "
+          f"decode_tok/s={s['decode_tok_s']:.1f} "
+          f"prefill_calls={eng.prefill_dispatches} "
+          f"decode_calls={eng.decode_dispatches}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="full", choices=["full", "smoke"])
@@ -138,39 +194,20 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="trace the run with torch.profiler; print device "
                          "time by kernel and the device's busy share")
+    ap.add_argument("--mesh", default="1,1",
+                    help="DP,TP: TP tensor-parallel ranks (DP must be 1)")
+    ap.add_argument("--backend", choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the ranks (default: "
+                         "nccl on cuda, gloo on cpu)")
     args = ap.parse_args()
-
-    cfg = (get_config if args.config == "full" else get_smoke_config)(
-        "llama-7b-paper")
-    params = M.init_params(cfg, args.seed, dtype=getattr(torch, args.dtype),
-                           device=args.device)
-    trace = build_trace(cfg, args.requests,
-                        [int(v) for v in args.prompt_lens.split(",")],
-                        args.max_new, args.seed)
-    dtype = getattr(torch, args.dtype)
-    weights = adapter_weights(
-        cfg, {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in trace},
-        dtype=dtype, device=args.device, seed=args.seed)
-
-    def run():
-        return serve(cfg, params, trace, bank_mode=args.bank_mode,
-                     lora_kernel=args.lora_kernel,
-                     decode_block=args.decode_block,
-                     max_batch=args.max_batch, seed=args.seed,
-                     weights=weights, device=args.device)
-
-    eng, reqs, s = profiled(run, args.device) if args.profile else run()
-    where = torch.cuda.get_device_name() if args.device == "cuda" else "cpu"
-    print(f"model={cfg.name} layers={cfg.n_layers} dtype={args.dtype} "
-          f"device={where} bank_mode={args.bank_mode} "
-          f"lora_kernel={args.lora_kernel} decode_block={args.decode_block}")
-    print(f"finished={s['finished']}/{len(reqs)} "
-          f"p50_ttft={s['p50_ttft'] * 1e3:.1f}ms "
-          f"p95_ttft={s['p95_ttft'] * 1e3:.1f}ms "
-          f"mean_tbt={s['mean_tbt'] * 1e3:.2f}ms "
-          f"decode_tok/s={s['decode_tok_s']:.1f} "
-          f"prefill_calls={eng.prefill_dispatches} "
-          f"decode_calls={eng.decode_dispatches}")
+    dp, tp = (int(v) for v in args.mesh.split(","))
+    if tp == 1 or dp != 1:              # dp > 1 is refused before a spawn
+        _serve_rank(0, dp, tp, args)
+        return
+    backend = args.backend or ("nccl" if args.device == "cuda" else "gloo")
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_serve_rank, tp, backend=backend,
+              init_file=Path(tmp) / "init", args=(dp, tp, args))
 
 
 if __name__ == "__main__":

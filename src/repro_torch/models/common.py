@@ -8,6 +8,12 @@ LoRA callback contract: blocks call ``lora(name, x) -> delta`` with
 x: (B, S, d_target) for a projection target name in {"q","k","v","o"};
 the callback owns the adapter gather and returns the batched LoRA delta
 in x.dtype (``repro_torch.lora.batched.make_lora_cb``).
+
+Tensor parallelism: where the JAX package selects its sharded mode
+through an ambient ``AxisEnv``, the port passes a ``TensorParallel``
+(``repro_torch.launch.mesh``) down explicitly as ``tp``; ``None`` or a
+size-1 group is the single-device model. ``all_reduce_`` is the one
+collective the layers need.
 """
 from __future__ import annotations
 
@@ -15,9 +21,23 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def tp_size(tp) -> int:
+    return 1 if tp is None else tp.size
+
+
+def all_reduce_(x, tp):
+    """Sum ``x`` over the tensor-parallel group in x's type (in place when
+    x is contiguous); a no-op at tp = 1. Returns the sum."""
+    if tp_size(tp) > 1:
+        x = x.contiguous()
+        dist.all_reduce(x, group=tp.group)
+    return x
 
 
 def rows_to_tokens(x):

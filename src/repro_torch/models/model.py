@@ -9,6 +9,13 @@ JAX scans. Cache dict keys, as in the JAX package:
   k, v : (L, B, S, Kv, hd) self-attention KV
 ``decode_step`` writes each layer's new K/V into the given cache tensors
 in place (JAX returns new arrays) and returns a dict with a new ``pos``.
+
+``tp`` (a ``launch.mesh.TensorParallel``, optional) runs a rank of a
+tensor-parallel model: ``params`` is the rank's slice
+(``serving.sharding.EngineSharding.shard_params``), the cache holds its
+kv heads, and the LoRA bank its co-sharded slice. Embedding, norms and
+``lm_head`` are replicated, and the hidden state after every all-reduce
+is the same on every rank, so every rank computes the same logits.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.lora.batched import make_lora_cb
 
 from .attention import GQAAttention, gqa_decode, gqa_full
-from .common import dense_init, rmsnorm
+from .common import dense_init, rmsnorm, tp_size
 from .ffn import SwiGLU
 
 
@@ -80,30 +87,31 @@ def lm_head(cfg, params: DenseLM):
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
-def _bank_layer(bank, i: int):
+def bank_layer(bank, i: int):
     """Layer ``i`` of a padded bank dict or of each bucket's dict (views)."""
     if bank is None:
         return None
     if isinstance(bank, (tuple, list)):
-        return tuple(_bank_layer(b, i) for b in bank)
+        return tuple(bank_layer(b, i) for b in bank)
     return {t: {"A": w["A"][i], "B": w["B"][i]} for t, w in bank.items()}
 
 
-def _dense_block_full(cfg, bp: DenseBlock, x, window, lora):
+def _dense_block_full(cfg, bp: DenseBlock, x, window, lora, tp):
     # positions None: the prefill's arange(S), which lets MHA attention
     # take kernel B5
     h, kv = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                     window=window, lora=lora)
+                     window=window, lora=lora, tp=tp)
     x = x + h
-    f = bp.ffn(rmsnorm(x, bp.ln2, cfg.rmsnorm_eps))
+    f = bp.ffn(rmsnorm(x, bp.ln2, cfg.rmsnorm_eps), tp)
     return x + f, kv
 
 
-def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora):
+def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
+                        tp):
     h, _ = gqa_decode(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                      kc, vc, pos, window=window, lora=lora)
+                      kc, vc, pos, window=window, lora=lora, tp=tp)
     x = x + h
-    return x + bp.ffn(rmsnorm(x, bp.ln2, cfg.rmsnorm_eps))
+    return x + bp.ffn(rmsnorm(x, bp.ln2, cfg.rmsnorm_eps), tp)
 
 
 def _embed(params: DenseLM, tokens):
@@ -111,12 +119,14 @@ def _embed(params: DenseLM, tokens):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
-               device="cuda"):
+               device="cuda", tp=None):
     """Zeroed cache dict. max_len should already account for any sliding
-    window (callers pass min(seq, window))."""
+    window (callers pass min(seq, window)). At tp > 1 it holds this rank's
+    n_kv_heads / tp kv heads (the JAX package's kv-head-sharded
+    "baseline" cache layout), and no full cache is ever made."""
     _check_family(cfg)
     dev = resolve_device(device)
-    Kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    Kv, hd = cfg.n_kv_heads // tp_size(tp), cfg.resolved_head_dim
     shape = (cfg.n_layers, batch, max_len, Kv, hd)
     return {"pos": torch.zeros(batch, dtype=torch.int32, device=dev),
             "k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -140,7 +150,7 @@ def _write_prefill_kv(kvs, cache_arr, window):
 
 def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
             cache_len: Optional[int] = None, window: Optional[int] = None,
-            cache_dtype=None, lora_kernel="einsum"):
+            cache_dtype=None, lora_kernel="einsum", tp=None):
     """Prefill a batch of same-length rows. Returns (last_logits (B,V),
     cache)."""
     _check_family(cfg)
@@ -149,11 +159,11 @@ def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
     cache_len = cache_len or (min(S, window) if window else S)
     x = _embed(params, tokens)
     cache = init_cache(cfg, B, cache_len, cache_dtype or params.embed.dtype,
-                       device=tokens.device)
+                       device=tokens.device, tp=tp)
     for i, bp in enumerate(params.blocks):
-        lora = make_lora_cb(_bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel)
-        x, (k, v) = _dense_block_full(cfg, bp, x, window, lora)
+        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
+                            kernel=lora_kernel, tp=tp)
+        x, (k, v) = _dense_block_full(cfg, bp, x, window, lora, tp)
         # one layer at a time into the cache (no stacked (L, ...) copy)
         _write_prefill_kv(k[None], cache["k"][i:i + 1], window)
         _write_prefill_kv(v[None], cache["v"][i:i + 1], window)
@@ -165,7 +175,7 @@ def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
 
 def decode_step(cfg, params: DenseLM, cache, tokens, *, bank=None,
                 lora_idx=None, window: Optional[int] = None,
-                lora_kernel="einsum"):
+                lora_kernel="einsum", tp=None):
     """One decode step. tokens: (B,) int. Returns (logits (B,V), cache):
     the K/V tensors of ``cache`` are updated in place, ``pos`` is new."""
     _check_family(cfg)
@@ -173,10 +183,10 @@ def decode_step(cfg, params: DenseLM, cache, tokens, *, bank=None,
     pos = cache["pos"]
     x = _embed(params, tokens[:, None])
     for i, bp in enumerate(params.blocks):
-        lora = make_lora_cb(_bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel)
+        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
+                            kernel=lora_kernel, tp=tp)
         x = _dense_block_decode(cfg, bp, x, cache["k"][i], cache["v"][i],
-                                pos, window, lora)
+                                pos, window, lora, tp)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     h_last = rmsnorm(x[:, 0], params.ln_f, cfg.rmsnorm_eps)

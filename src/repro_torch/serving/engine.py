@@ -18,9 +18,18 @@ indices of co-batched slots. ``bank_mode`` selects the layout
 
 ``lora_kernel`` defaults to ``"sgmv"``: the hand-written kernels B1
 (padded) and B2 (bucketed), or their plain versions when the engine runs
-on the CPU. ``"einsum"`` selects the gather-einsum path. Not ported in
-this slice: the page pool, the mesh-sharded mode, the VLM and audio
-frontends (ROADMAP).
+on the CPU. ``"einsum"`` selects the gather-einsum path.
+
+``mesh`` (a ``launch.mesh.TensorParallel``, from ``make_engine_mesh``)
+turns on the tensor-parallel mode: this process is one rank of an SPMD
+group, every rank runs the same engine on the same requests, and the
+engine keeps the rank's slice of the weights, the cache and the
+co-sharded bank (``serving.sharding``). The bank is sharded again after
+every rebuild and install. Bank kernels at tp > 1: B3a/B3b (padded) and
+B4a/B4b (bucketed). Tokens are identical on every rank (the hidden state
+after each all-reduce is), and match the single-device engine's by token,
+not by bit: the all-reduce reorders the d-sums. Not ported: the page
+pool, data parallelism, the VLM and audio frontends (ROADMAP).
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.lora.bank import build_bank, rank_bucket
 from repro_torch.models import model as M
 
 from .metrics import MetricsCollector
+from .sharding import make_engine_sharding
 
 Request = ServeRequest
 
@@ -44,7 +54,7 @@ class ServingEngine:
                  *, max_batch: int = 8, max_len: int = 512,
                  seed: int = 0, bank_mode: str = "padded",
                  decode_block: int = 1, lora_kernel: str = "sgmv",
-                 clock: Callable[[], float] = time.monotonic,
+                 mesh=None, clock: Callable[[], float] = time.monotonic,
                  tracer=None, server_id: int = 0, device="cuda"):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
@@ -53,6 +63,12 @@ class ServingEngine:
         if lora_kernel not in ("einsum", "sgmv"):
             raise ValueError(f"unknown lora kernel {lora_kernel!r}")
         self.cfg = cfg
+        # tensor-parallel mode; None (or tp = 1) is the single-device
+        # engine, exactly
+        self.sharding = make_engine_sharding(mesh, cfg)
+        self.tp = None if self.sharding is None else mesh
+        if self.sharding is not None:
+            params = self.sharding.shard_params(params)
         # duck-typed obs tracer: per-iteration spans stamped on the engine
         # clock, carrying the batch shape the cost-model drift meter reads
         self.tracer = tracer
@@ -84,7 +100,7 @@ class ServingEngine:
         self.bank_rebuilds = 0          # the initial build doesn't count
         # the cache is fp32 whatever the params' dtype, as in the JAX engine
         self.cache = M.init_cache(cfg, max_batch, max_len, torch.float32,
-                                  device=self.device)
+                                  device=self.device, tp=self.tp)
 
     # -- placement-aware bank management --------------------------------
     def _rebuild_bank(self, adapter_ranks: Dict[str, int]) -> None:
@@ -97,6 +113,9 @@ class ServingEngine:
                                     n_layers=self.cfg.n_layers,
                                     dtype=self.params.embed.dtype,
                                     device=self.device)
+        if self.sharding is not None:
+            # every rebuild reshapes the bank; it must stay co-sharded
+            self.lora_bank = self.sharding.shard_bank(self.lora_bank)
         self.adapter_ids = list(self.lora_bank.adapter_ids)
         self._adapter_idx = {aid: i
                              for i, aid in enumerate(self.adapter_ids)}
@@ -122,16 +141,22 @@ class ServingEngine:
         return True
 
     def adapter_weights(self, adapter_id: str):
-        """One adapter's unpadded weights (what a peer reads remotely)."""
-        return self.lora_bank.get_adapter(adapter_id)
+        """One adapter's unpadded weights (what a peer reads remotely),
+        full width: at tp > 1 the ranks' slices are gathered, so every
+        rank calls it."""
+        w = self.lora_bank.get_adapter(adapter_id)
+        return w if self.sharding is None else self.sharding.gather_adapter(w)
 
     def install_adapter(self, adapter_id: str, rank: int,
                         weights=None) -> bool:
         """Make ``adapter_id`` servable, with ``weights`` read from a peer
-        written over its rows (in place) when given. Returns True if the
-        bank was rebuilt."""
+        written over its rows (in place) when given. Peer weights are full
+        width; at tp > 1 the rank writes its co-sharded slice. Returns
+        True if the bank was rebuilt."""
         added = self.load_adapters({adapter_id: rank})
         if weights is not None:
+            if self.sharding is not None:
+                weights = self.sharding.shard_adapter(weights)
             self.lora_bank = self.lora_bank.set_adapter(adapter_id, weights)
             self.bank = self.lora_bank.data
         return added
@@ -201,7 +226,7 @@ class ServingEngine:
                                    lora_idx=self.lora_bank.lora_idx(aidx_t),
                                    cache_len=self.max_len,
                                    cache_dtype=torch.float32,
-                                   lora_kernel=self.lora_kernel)
+                                   lora_kernel=self.lora_kernel, tp=self.tp)
         self.prefill_dispatches += 1
         firsts = logits.argmax(dim=-1).to(torch.int32)
         firsts_host = firsts.tolist()            # the group's one sync
@@ -252,7 +277,8 @@ class ServingEngine:
     def _decode_fn(self, tokens):
         logits, self.cache = M.decode_step(
             self.cfg, self.params, self.cache, tokens, bank=self.bank,
-            lora_idx=self._slot_lora, lora_kernel=self.lora_kernel)
+            lora_idx=self._slot_lora, lora_kernel=self.lora_kernel,
+            tp=self.tp)
         return logits.argmax(dim=-1).to(torch.int32)
 
     def _decode_once(self) -> None:

@@ -1,6 +1,7 @@
-"""PyTorch port, package rules: nothing in ``src/repro_torch`` or
-``chip_smoke.py`` imports JAX or the JAX package, and the port's copies
-of the JAX package's pure-Python modules have not drifted."""
+"""PyTorch port, package rules: nothing in ``src/repro_torch``,
+``chip_smoke.py`` or ``tests/_torch_tp_rank.py`` imports JAX or the JAX
+package, and the port's copies of the JAX package's pure-Python modules
+have not drifted."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -8,8 +9,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+# the port, chip_smoke.py, and the module that tensor-parallel test ranks
+# import (they must not import JAX)
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_tp_rank.py"]
 
 
 def _imported_modules(path):
@@ -38,6 +41,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_port_tree_is_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "sgmv.py", "ops.py", "model.py", "bridge.py",
+            "mesh.py", "sharding.py", "_torch_tp_rank.py",
             "chip_smoke.py"} <= names
 
 
