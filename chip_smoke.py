@@ -29,9 +29,15 @@ Phases (any failure raises; the script then exits non-zero):
                ``sgmv_shrink``, B3b ``sgmv_expand`` (on B1's copied
                arguments) and B5 ``flash_mha`` against their plain-torch
                versions on those copies, in bf16 and cast to fp32; times
-               from CUDA events with L2 flushed between launches, the
+               from CUDA events with L2 flushed between launches (the
+               card held busy while the host enqueues each call), the
                bound from the bytes and operations the call needs, and for
-               B5 the time of ``scaled_dot_product_attention``.
+               B5 the time of ``scaled_dot_product_attention``; each line
+               names the shrink split C of B1, B2, B3a and B4a and B5's
+               tile. Then, for B1 in bf16 on its decode and prefill
+               calls: its time at C = 4, 8 and 16 beside the cluster
+               occupancy the card reports, and a yardstick, ``A[aid]``-
+               gathered ``torch.bmm`` then ``torch.bmm``.
   4. unfused — the path through B3a/B3b: ``sgmv`` and
                ``sgmv_rank_bucketed`` on the engine's own copied dispatcher
                calls, and ``apply_bank_sgmv(fused=False)`` on the engine's
@@ -87,6 +93,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+SPIN_CYCLES = 5_000_000               # ~2.5 ms of the card's clock
 BLOCK_T = 16
 SGMV_SRC = "src/repro_torch/kernels/csrc/sgmv.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash.cu"
@@ -285,12 +292,18 @@ def _flash_work(q, item):
 
 
 def _time_ms(call, flush, reps=20):
-    """Median ms of one call over CUDA events, L2 flushed before each."""
+    """Median ms of one call over CUDA events, L2 flushed before each.
+    The card spins (``torch.cuda._sleep``, ~2.5 ms) between the flush and
+    the start event, so the host has enqueued the call before the card
+    reaches the event: the events time the card's work, not the host's
+    launch overhead (which a flush alone did not hide for a short
+    kernel on a slow host)."""
     for _ in range(3):
         call()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s, e = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         s.record()
@@ -333,6 +346,19 @@ def _plains():
             "B4a": sgmv.sgmv_multibank_shrink_blocks_ref,
             "B4b": sgmv.sgmv_multibank_expand_blocks_ref,
             "B5": flash.flash_mha_plain}
+
+
+def _plan(kid, args, dtype):
+    """What shapes the kernel's work: the shrink split C of B1, B2, B3a
+    and B4a (``sgmv.shrink_split``), B5's (q, kv) tile."""
+    from repro_torch.kernels import flash, sgmv
+    if kid == "B5":
+        q, k = args[0], args[1]
+        return "tile={}x{}".format(*flash.kernel_tile(dtype, q.shape[2],
+                                                      k.shape[2]))
+    if kid in ("B3b", "B4b"):
+        return "split=none"
+    return f"split={sgmv.shrink_split(args[0].shape[1], dtype)}"
 
 
 def _check_and_time(kid, layout, args0, kw, dest, flush, results):
@@ -383,7 +409,8 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
         bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
         lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
         log(f"kernel {kid} {KERNELS[kid][0]} layout={layout} "
-            f"dtype={str(dtype)[6:]} {shape} max_abs_err={err:.3e} "
+            f"dtype={str(dtype)[6:]} {shape} {_plan(kid, args, dtype)} "
+            f"max_abs_err={err:.3e} "
             f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} "
             f"bound_ms={bound_ms:.5f} ({bound_by}: {byts} B, "
             f"{flops} FLOP)")
@@ -392,14 +419,51 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
             bound_by=bound_by, library_ms=library_ms)
 
 
+def _b1_splits_and_yardstick(calls, flush):
+    """B1 in bf16 on its copied decode and prefill calls: its time with
+    the shrink split C at 4, 8 and 16 (``shrink_split`` stood in for; the
+    occupancy is ``cudaOccupancyMaxActiveClusters`` of B1's kernel), and
+    the yardstick the split is weighed against: ``A[aid]`` and ``B[aid]``
+    gathered, ``torch.bmm`` then ``torch.bmm`` (h in bf16)."""
+    import ctypes
+    from repro_torch.kernels import build, sgmv
+    lib = build.load_library()
+    chosen = sgmv.shrink_split
+    for layout in ("decode", "prefill"):
+        (x_pad, A, B, ba), _, _ = calls[("sgmv_fused_blocks", layout)]
+        d = x_pad.shape[1]
+        for split in (4, 8, 16):
+            n = ctypes.c_int(-1)
+            err = lib.sgmv_cluster_occupancy(1, split, d, ctypes.byref(n))
+            assert err == 0 and n.value > 0, (split, err, n.value)
+            sgmv.shrink_split = lambda d, dtype, split=split: split
+            try:
+                ms = _time_ms(lambda: sgmv.sgmv_fused_blocks(x_pad, A, B, ba),
+                              flush)
+            finally:
+                sgmv.shrink_split = chosen
+            log(f"split: B1 layout={layout} in={tuple(x_pad.shape)} C="
+                f"{split}{' (chosen)' if split == chosen(d, A.dtype) else ''}"
+                f" ms={ms:.4f} occupancy={n.value} clusters")
+        nb = x_pad.shape[0] // BLOCK_T
+        xb = x_pad[:nb * BLOCK_T].view(nb, BLOCK_T, d)
+        idx = ba[:nb].long()
+        ms = _time_ms(lambda: torch.bmm(torch.bmm(xb, A[idx]), B[idx]),
+                      flush)
+        log(f"yardstick: B1 layout={layout} in={tuple(x_pad.shape)} "
+            f"gathered torch.bmm then torch.bmm bf16 ms={ms:.4f} (two "
+            "library calls and two gathers, not one call)")
+
+
 def phase_kernels(dev, calls):
     """Each kernel wrapper and its plain version on the arguments of the
     main path's own calls (bf16, as the engine ran them, and the same
-    tensors cast to fp32)."""
+    tensors cast to fp32); B1's split sweep and yardstick."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     results = {}
     for kid, layout, args0, kw, dest in _kernel_cases(calls):
         _check_and_time(kid, layout, args0, kw, dest, flush, results)
+    _b1_splits_and_yardstick(calls, flush)
     del flush
     return results
 

@@ -10,7 +10,9 @@ into one shared library with a plain C interface, loaded with ``ctypes``:
 
 The library lands in ``build/repro_torch/`` under the repository root,
 keyed by a hash of the sources and the flags, so an edit rebuilds. There
-is no fallback: without ``nvcc`` the build raises.
+is no fallback: without ``nvcc`` the build raises. ``launch`` calls one
+of the library's launchers on a device's current stream and raises on
+the CUDA error it returns.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -97,21 +101,21 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.sgmv_fused_blocks_launch.argtypes = [
-                i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+                i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             lib.sgmv_fused_blocks_launch.restype = i32
             lib.sgmv_multibank_blocks_launch.argtypes = [
-                i32, vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
+                i32, i32, vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
                 ctypes.POINTER(i32), i32, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_multibank_blocks_launch.restype = i32
             lib.sgmv_shrink_launch.argtypes = [
-                i32, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+                i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_shrink_launch.restype = i32
             lib.sgmv_expand_launch.argtypes = [
                 i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             lib.sgmv_expand_launch.restype = i32
             lib.sgmv_multibank_shrink_launch.argtypes = [
-                i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp,
-                vp, vp, i32, i32, i32, i32, vp]
+                i32, i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32,
+                vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_multibank_shrink_launch.restype = i32
             lib.sgmv_multibank_expand_launch.argtypes = [
                 i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp,
@@ -121,5 +125,19 @@ def load_library() -> ctypes.CDLL:
                 i32, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
                 i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp]
             lib.flash_mha_launch.restype = i32
+            lib.sgmv_cluster_occupancy.argtypes = [
+                i32, i32, i32, ctypes.POINTER(i32)]
+            lib.sgmv_cluster_occupancy.restype = i32
             _LIB = lib
         return _LIB
+
+
+def launch(fn_name: str, device, *args) -> None:
+    """Calls the library's launcher ``fn_name`` with ``args`` and the
+    current stream of ``device`` (a CUDA device); raises if it returns a
+    CUDA error (a launch the card refused never runs)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(load_library(), fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")

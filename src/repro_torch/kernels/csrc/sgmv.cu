@@ -26,57 +26,80 @@
 // Contract (B1, B2; B3a and B3b are its two halves). x_pad (T_pad, d)
 // is segment-blocked by ops.prepare_segments*: block i holds block_t rows
 // of one adapter. For each block i < T_pad / block_t and each row t of it
-//     h[t, :]   = round_to_T( sum_k x[t, k] * A[k, :] )   (fp32 sums)
-//     out[t, c] = round_to_T( sum_j h[t, j] * B[j, c] )   (fp32 sums)
+//     h[t, :]   = round_to_T( sum_{q=0..C-1} P_q[t, :] )   (in order q)
+//     P_q[t, :] = sum_{k in slice q} x[t, k] * A[k, :]    (fp32, k in
+//                                                          order)
+//     out[t, c] = round_to_T( sum_j h[t, j] * B[j, c] )    (fp32, j in
+//                                                          order)
 // where (A, B) is the block's adapter (B1: row block_adapter[i] of the
 // one bank; B2: row block_row[i] of bank block_bucket[i], at that bank's
-// rank). Rounding h to the input type between the two products is part
-// of the contract (sgmv.py:125-139). Rows >= nblocks * block_t are never
+// rank), slice q of d is [q * ceil(d / C), (q + 1) * ceil(d / C)) cut at
+// d, and C, the shrink split, is the wrapper's ``shrink_split(d, dtype)``:
+// a function of d and the type only, never of the rank, the bucket,
+// block_t or the kernel, so every kernel sums an h entry in the same
+// order. Rounding h to the input type between the two products is part of
+// the contract (sgmv.py:125-139). Rows >= nblocks * block_t are never
 // written (T_pad need not be a multiple of block_t; ops never reads them).
 //
 // What bounds it on the H100. At decode a block reads its adapter's A and
 // B, 2 * d * r * itemsize bytes (2 MB at d = 4096, r = 128, bf16), and
-// does 2 * block_t * r * (d + d_out) FMAs: it is memory-bound when the
-// card's bandwidth is shared by enough blocks, but a decode batch gives
-// only a handful of blocks, so each block's own compute on one SM is the
-// limit of this first version.
+// does block_t * r * (d + d_out) FMAs; a decode call has ~8 token blocks
+// and ~5 adapters, so the call's bytes (~10 MB, 3 us) bound it, and a
+// block's work has to be spread over many SMs to reach that rate.
 //
-// Design. One thread block per token block, as the TPU grid's first
-// dimension. The block loads its own index (the TPU's scalar prefetch),
-// streams A through shared memory in d-chunks while each thread keeps the
-// fp32 sums of its (row, column) outputs in registers, rounds h into
-// shared memory once, then loops over the output columns (the loop takes
-// the place of the TPU's sequential j grid dimension): one thread per
-// column, coalesced reads of B's rows, block_t fp32 sums in registers.
-// The summation order of an output never depends on the bank's rank, so
-// a bucketed bank and the equivalent zero-padded bank give bit-identical
-// results. All four kernels run the same two device functions,
-// shrink_block and expand_block, so an output's sums and their FMA
-// contraction are the same code in each: B3a then B3b equals B1 bit for
-// bit, the per-bucket host loop over B3a/B3b equals B2, and B4a then B4b
-// equals B2 (at one rank; across ranks the all-reduce reorders the
-// d-sum). B3b and B4b tile the
-// output columns over a second grid dimension (block_o columns a thread
-// block, as the TPU's j dimension), which spreads a token block over
-// more SMs and changes no sum. CUDA cores in fp32 only: tensor cores,
-// TMA and splitting a block's shrink over several SMs are left to a later
-// version. Spare blocks
-// (one per adapter, block_adapter = 0) and the empty rows of a partly
-// filled block (15 of 16 rows at bucketed decode) are computed and never
-// read; skipping them needs a per-block row count, also left for later.
+// Design. Each token block is a thread-block cluster of C blocks
+// (cudaLaunchKernelEx with a cluster dimension; C = 16 needs the
+// non-portable cluster size). Block j of the cluster:
+//  1. sums its d-slice of x_blk @ A into a block_t x r fp32 partial P_j
+//     in its own shared memory: A's slice streams through a ring of
+//     kStages shared chunks with 16-byte cp.async loads, x's slice is
+//     widened to fp32 once; each thread keeps the fp32 sums of one column
+//     and up to 8 rows in registers (CUDA cores, the same code for fp32
+//     and bf16);
+//  2. after cluster.sync(), reduces its 1/C share of the h entries over
+//     the C partials through distributed shared memory (map_shared_rank),
+//     in rank order 0..C-1, and rounds each sum to T — a reduce-scatter;
+//  3. B1/B2: after a second cluster.sync(), gathers every share into its
+//     own hs (the block_t x r h that every block then holds), syncs the
+//     cluster once more (no block leaves while another reads its shared
+//     memory), and runs the unchanged expand_block over its own output
+//     columns [j ceil(d_out / C), ...). B3a/B4a write their share of h
+//     straight to device memory (B4a with the zero columns r..max_r)
+//     and sync the cluster before leaving.
+// A decode call so fills ~8 C SMs instead of 8, and a block reads 2 MB /
+// C of weights. An h entry's sum is the same code in every kernel, so B3a
+// then B3b equals B1 bit for bit, the per-bucket host loop over B3a/B3b
+// equals B2, B4a then B4b equals B2 (at one rank; across ranks the
+// all-reduce reorders the d-sum), bgmv (block_t 1) equals sgmv_fused
+// (block_t 16), and a bucketed bank gives the bits of the equivalent
+// zero-padded bank: a column's sums never depend on the rank, and the
+// padded bank's extra expand terms are exact zeros. expand_block keeps
+// its order; B3b and B4b tile the output columns over a second grid
+// dimension (block_o columns a thread block) and are unchanged. Tensor
+// cores for the shrink, a faster expand, and skipping spare blocks (one
+// per adapter) and the empty rows of a partly filled block (15 of 16 at
+// bucketed decode) are left to a later version.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlockT = 16;
 constexpr int kMaxRank = 128;
-constexpr int kChunk = 32;                 // d-chunk staged per step
+constexpr int kMaxSplit = 16;              // the largest cluster
+constexpr int kChunk = 32;                 // rows of A a ring stage holds
+constexpr int kStages = 4;                 // ring depth of the A stream
 constexpr int kMaxBuckets = 8;             // ranks 1..128 in powers of two
-// rows of h one shrink thread owns: block_t / (kThreads / r), r <= 128
+// rows of a partial one shrink thread owns: block_t / (kThreads / r)
 constexpr int kRowsPerThread = kMaxBlockT * kMaxRank / kThreads;
+constexpr int kHElems = kMaxBlockT * kMaxRank;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -92,65 +115,192 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);            // round to nearest even, as torch
 }
 
-// The shrink of one token block, shared by B1, B2 and B3a:
-// hs[t][c] = round_to_T(sum_k x_blk[t, k] * a[k, c]) for t < block_t,
-// c < r, held as fp32. Ends with a barrier, so hs is ready to read.
-template <typename T>
-__device__ void shrink_block(const T* __restrict__ x_blk,
-                             const T* __restrict__ a,
-                             float (*hs)[kMaxRank], int block_t, int d,
-                             int r) {
-  __shared__ float xs[kMaxBlockT][kChunk];
-  __shared__ float as[kChunk][kMaxRank];
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 
+__host__ __device__ __forceinline__ int round4(int n) {
+  return (n + 3) / 4 * 4;
+}
+
+// Shared memory of a cluster shrink, in this order: the partial P_j (and
+// later the gathered hs), (kHElems, fp32); this block's reduce share,
+// round4(ceil(kHElems / C)) fp32; x's slice, (kMaxBlockT, round4(ceil(d /
+// C))) fp32; the A ring, kStages x (kChunk, kMaxRank) of T.
+size_t shrink_smem_bytes(int split, int d, size_t item) {
+  return sizeof(float) * (kHElems + round4(cdiv(kHElems, split)) +
+                          kMaxBlockT * round4(cdiv(d, split))) +
+         item * kStages * kChunk * kMaxRank;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// n elements, contiguous, global -> shared: 16-byte cp.async where both
+// ends are 16-byte aligned (every call of the main path), element copies
+// otherwise; the shared contents are the same either way.
+template <typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
+  const int bytes = n * static_cast<int>(sizeof(T));
+  if (((reinterpret_cast<uintptr_t>(src) |
+        reinterpret_cast<uintptr_t>(dst) | bytes) & 15) == 0) {
+    const char* s = reinterpret_cast<const char*>(src);
+    char* t = reinterpret_cast<char*>(dst);
+    for (int e = threadIdx.x; e < bytes / 16; e += kThreads)
+      cp_async_16(t + 16 * e, s + 16 * e);
+  } else {
+    for (int e = threadIdx.x; e < n; e += kThreads) dst[e] = src[e];
+  }
+}
+
+// Layout of a cluster shrink's dynamic shared memory (shrink_smem_bytes).
+template <typename T>
+struct ShrinkSmem {
+  float* part;                             // (kMaxBlockT, kMaxRank)
+  float* red;                              // this block's reduce share
+  float* xs;                               // (kMaxBlockT, ldx)
+  T* ring;                                 // kStages x (kChunk, kMaxRank)
+  int ldx;
+  __device__ ShrinkSmem(unsigned char* raw, int split, int d) {
+    part = reinterpret_cast<float*>(raw);
+    red = part + kHElems;
+    xs = red + round4(cdiv(kHElems, split));
+    ldx = round4(cdiv(d, split));
+    ring = reinterpret_cast<T*>(xs + kMaxBlockT * ldx);
+  }
+};
+
+// Step 1 of every shrink: this block's partial
+//   part[t][c] = sum_{k in [k_lo, k_hi)} x_blk[t, k] * a[k, c]
+// (fp32 FMAs, k in order) for t < block_t, c < r. x_blk rows have stride
+// d; a is (d, r) row-major. Ends with the partial written (no barrier).
+template <typename T>
+__device__ void slice_partial(const T* __restrict__ x_blk,
+                              const T* __restrict__ a, ShrinkSmem<T>& sm,
+                              int block_t, int d, int r, int k_lo,
+                              int k_hi) {
   const int tid = threadIdx.x;
+  const int n = k_hi - k_lo;
+  const int nchunks = cdiv(n, kChunk);
+  const T* a_slice = a + (size_t)k_lo * r;
+  // the ring's first kStages - 1 chunks, one commit group each
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < nchunks)
+      stage_copy<T>(sm.ring + c * kChunk * kMaxRank,
+                    a_slice + (size_t)c * kChunk * r,
+                    min(kChunk, n - c * kChunk) * r);
+    cp_async_commit();
+  }
+  // x's slice, widened once, zero past the slice
+  for (int e = tid; e < block_t * sm.ldx; e += kThreads) {
+    const int t = e / sm.ldx, kk = e % sm.ldx;
+    sm.xs[e] = kk < n ? to_f(x_blk[(size_t)t * d + k_lo + kk]) : 0.f;
+  }
+
   const int rows_per_pass = kThreads / r;          // >= 2
   const bool active = tid < rows_per_pass * r;
   const int c = tid % r;
   const int t0 = tid / r;
-
-  // fp32 sums in registers
   float acc[kRowsPerThread];
 #pragma unroll
   for (int m = 0; m < kRowsPerThread; ++m) acc[m] = 0.f;
 
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    const int kc = min(kChunk, d - k0);
-    for (int e = tid; e < block_t * kChunk; e += kThreads) {
-      const int t = e / kChunk, kk = e % kChunk;
-      xs[t][kk] = kk < kc ? to_f(x_blk[(size_t)t * d + k0 + kk]) : 0.f;
-    }
-    for (int e = tid; e < kChunk * r; e += kThreads) {
-      const int kk = e / r, cc = e % r;
-      as[kk][cc] = kk < kc ? to_f(a[(size_t)(k0 + kk) * r + cc]) : 0.f;
-    }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int next = ch + kStages - 1;
+    if (next < nchunks)
+      stage_copy<T>(sm.ring + (next % kStages) * kChunk * kMaxRank,
+                    a_slice + (size_t)next * kChunk * r,
+                    min(kChunk, n - next * kChunk) * r);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();                  // chunk ch landed
     __syncthreads();
+    const T* as = sm.ring + (ch % kStages) * kChunk * kMaxRank;
+    const int kc = min(kChunk, n - ch * kChunk);
+    const float* xc = sm.xs + ch * kChunk;
     if (active) {
-#pragma unroll 8
-      for (int kk = 0; kk < kChunk; ++kk) {
-        const float av = as[kk][c];
+      int kk = 0;
+      for (; kk + 4 <= kc; kk += 4) {
+        const float a0 = to_f(as[(kk + 0) * r + c]);
+        const float a1 = to_f(as[(kk + 1) * r + c]);
+        const float a2 = to_f(as[(kk + 2) * r + c]);
+        const float a3 = to_f(as[(kk + 3) * r + c]);
 #pragma unroll
         for (int m = 0; m < kRowsPerThread; ++m) {
           const int t = t0 + m * rows_per_pass;
-          if (t < block_t) acc[m] += xs[t][kk] * av;
+          if (t < block_t) {
+            const float4 xv =
+                *reinterpret_cast<const float4*>(xc + t * sm.ldx + kk);
+            acc[m] = fmaf(xv.x, a0, acc[m]);
+            acc[m] = fmaf(xv.y, a1, acc[m]);
+            acc[m] = fmaf(xv.z, a2, acc[m]);
+            acc[m] = fmaf(xv.w, a3, acc[m]);
+          }
+        }
+      }
+      for (; kk < kc; ++kk) {
+        const float av = to_f(as[kk * r + c]);
+#pragma unroll
+        for (int m = 0; m < kRowsPerThread; ++m) {
+          const int t = t0 + m * rows_per_pass;
+          if (t < block_t) acc[m] = fmaf(xc[t * sm.ldx + kk], av, acc[m]);
         }
       }
     }
-    __syncthreads();
+    __syncthreads();                               // the stage is free
   }
+  cp_async_wait<0>();
   if (active) {
 #pragma unroll
     for (int m = 0; m < kRowsPerThread; ++m) {
       const int t = t0 + m * rows_per_pass;
-      if (t < block_t) hs[t][c] = to_f(from_f<T>(acc[m]));  // h in x's type
+      if (t < block_t) sm.part[t * kMaxRank + c] = acc[m];
     }
   }
-  __syncthreads();
+}
+
+// h[t][c] before rounding: the cluster's C partials summed in rank order.
+__device__ __forceinline__ float cluster_sum(float* part, int split, int t,
+                                             int c) {
+  cg::cluster_group cl = cg::this_cluster();
+  float* p = part + t * kMaxRank + c;
+  float s = *cl.map_shared_rank(p, 0);
+  for (int q = 1; q < split; ++q) s = __fadd_rn(s, *cl.map_shared_rank(p, q));
+  return s;
+}
+
+// Step 1 for the token block at x_blk with adapter a: this block's
+// partial over its d-slice, then a cluster barrier (every partial ready).
+template <typename T>
+__device__ void cluster_partial(const T* __restrict__ x_blk,
+                                const T* __restrict__ a, ShrinkSmem<T>& sm,
+                                int block_t, int d, int r) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int ds = cdiv(d, cl.num_blocks());
+  const int k_lo = min(d, static_cast<int>(cl.block_rank()) * ds);
+  slice_partial<T>(x_blk, a, sm, block_t, d, r, k_lo, min(d, k_lo + ds));
+  cl.sync();
 }
 
 // The expand of one token block over output columns [col0, col1), shared
-// by B1, B2 and B3b: one thread per column, coalesced reads of b's rows,
-// block_t fp32 sums in registers, j = 0 .. r-1 in order.
+// by B1, B2, B3b and B4b: one thread per column, coalesced reads of b's
+// rows, block_t fp32 sums in registers, j = 0 .. r-1 in order.
 template <typename T>
 __device__ void expand_block(const float (*hs)[kMaxRank],
                              const T* __restrict__ b,
@@ -173,21 +323,62 @@ __device__ void expand_block(const float (*hs)[kMaxRank],
   }
 }
 
-// One token block: x_blk (block_t, d), a (d, r), b (r, d_out) ->
-// out_blk (block_t, d_out).
+// One token block as a cluster (B1, B2): x_blk (block_t, d), a (d, r),
+// b (r, d_out) -> out_blk (block_t, d_out), this block's column slice.
 template <typename T>
-__device__ void fused_block(const T* __restrict__ x_blk,
-                            const T* __restrict__ a,
-                            const T* __restrict__ b,
-                            T* __restrict__ out_blk,
-                            int block_t, int d, int r, int d_out) {
-  __shared__ float hs[kMaxBlockT][kMaxRank];
-  shrink_block<T>(x_blk, a, hs, block_t, d, r);
-  expand_block<T>(hs, b, out_blk, block_t, r, d_out, 0, d_out);
+__device__ void cluster_fused(const T* __restrict__ x_blk,
+                              const T* __restrict__ a,
+                              const T* __restrict__ b,
+                              T* __restrict__ out_blk, int block_t, int d,
+                              int r, int d_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int split = cl.num_blocks(), j = cl.block_rank();
+  ShrinkSmem<T> sm(smem_raw, split, d);
+  const int dso = cdiv(d_out, split);
+  const int col0 = min(d_out, j * dso), col1 = min(d_out, col0 + dso);
+  cluster_partial<T>(x_blk, a, sm, block_t, d, r);
+  // step 2: this block's share [e0, e1) of the h entries e = t * r + c
+  const int per = cdiv(block_t * r, split);
+  const int e0 = j * per, e1 = min(block_t * r, e0 + per);
+  for (int e = e0 + threadIdx.x; e < e1; e += kThreads)
+    sm.red[e - e0] = to_f(from_f<T>(cluster_sum(sm.part, split, e / r,
+                                                e % r)));
+  cl.sync();                     // every share ready; partials are dead
+  // step 3: gather every share into this block's hs, over the partial
+  for (int e = threadIdx.x; e < block_t * r; e += kThreads)
+    sm.part[(e / r) * kMaxRank + e % r] =
+        *cl.map_shared_rank(sm.red + e % per, e / per);
+  cl.sync();                     // hs ready; no share is read any more
+  expand_block<T>(reinterpret_cast<const float(*)[kMaxRank]>(sm.part), b,
+                  out_blk, block_t, r, d_out, col0, col1);
+}
+
+// One token block's h as a cluster (B3a, B4a): h_blk (block_t, ld) gets
+// the shrink in columns < r and zeros in r..ld, each block writing its
+// share of the block_t x ld entries.
+template <typename T>
+__device__ void cluster_shrink_to(const T* __restrict__ x_blk,
+                                  const T* __restrict__ a,
+                                  T* __restrict__ h_blk, int block_t, int d,
+                                  int r, int ld) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int split = cl.num_blocks(), j = cl.block_rank();
+  ShrinkSmem<T> sm(smem_raw, split, d);
+  cluster_partial<T>(x_blk, a, sm, block_t, d, r);
+  const int per = cdiv(block_t * ld, split);
+  const int e1 = min(block_t * ld, (j + 1) * per);
+  for (int e = j * per + threadIdx.x; e < e1; e += kThreads) {
+    const int t = e / ld, c = e % ld;
+    h_blk[e] = from_f<T>(c < r ? cluster_sum(sm.part, split, t, c) : 0.f);
+  }
+  cl.sync();                     // no block leaves while its partial is read
 }
 
 // Indices come from ops' segment layout, which keeps every adapter id,
-// bucket and row in range of the bank it indexes.
+// bucket and row in range of the bank it indexes. blockIdx.x / C is the
+// token block: a cluster's blocks are consecutive in x.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sgmv_fused_blocks_kernel(const T* __restrict__ x, const T* __restrict__ A,
@@ -195,11 +386,11 @@ sgmv_fused_blocks_kernel(const T* __restrict__ x, const T* __restrict__ A,
                          const int* __restrict__ block_adapter,
                          T* __restrict__ out, int block_t, int d, int r,
                          int d_out) {
-  const int i = blockIdx.x;
+  const int i = blockIdx.x / cg::this_cluster().num_blocks();
   const int aid = block_adapter[i];
-  fused_block<T>(x + (size_t)i * block_t * d, A + (size_t)aid * d * r,
-                 B + (size_t)aid * r * d_out,
-                 out + (size_t)i * block_t * d_out, block_t, d, r, d_out);
+  cluster_fused<T>(x + (size_t)i * block_t * d, A + (size_t)aid * d * r,
+                   B + (size_t)aid * r * d_out,
+                   out + (size_t)i * block_t * d_out, block_t, d, r, d_out);
 }
 
 struct BankSet {                           // passed by value
@@ -215,14 +406,14 @@ sgmv_multibank_blocks_kernel(const T* __restrict__ x, BankSet banks,
                              const int* __restrict__ block_row,
                              T* __restrict__ out, int block_t, int d,
                              int d_out) {
-  const int i = blockIdx.x;
+  const int i = blockIdx.x / cg::this_cluster().num_blocks();
   const int bkt = block_bucket[i];
   const int row = block_row[i];
   const int r = banks.rank[bkt];
   const T* a = static_cast<const T*>(banks.A[bkt]) + (size_t)row * d * r;
   const T* b = static_cast<const T*>(banks.B[bkt]) + (size_t)row * r * d_out;
-  fused_block<T>(x + (size_t)i * block_t * d, a, b,
-                 out + (size_t)i * block_t * d_out, block_t, d, r, d_out);
+  cluster_fused<T>(x + (size_t)i * block_t * d, a, b,
+                   out + (size_t)i * block_t * d_out, block_t, d, r, d_out);
 }
 
 template <typename T>
@@ -230,14 +421,10 @@ __global__ void __launch_bounds__(kThreads)
 sgmv_shrink_kernel(const T* __restrict__ x, const T* __restrict__ A,
                    const int* __restrict__ block_adapter, T* __restrict__ h,
                    int block_t, int d, int r) {
-  __shared__ float hs[kMaxBlockT][kMaxRank];
-  const int i = blockIdx.x;
+  const int i = blockIdx.x / cg::this_cluster().num_blocks();
   const int aid = block_adapter[i];
-  shrink_block<T>(x + (size_t)i * block_t * d, A + (size_t)aid * d * r, hs,
-                  block_t, d, r);
-  T* h_blk = h + (size_t)i * block_t * r;
-  for (int e = threadIdx.x; e < block_t * r; e += kThreads)
-    h_blk[e] = from_f<T>(hs[e / r][e % r]);      // exact: hs holds T values
+  cluster_shrink_to<T>(x + (size_t)i * block_t * d, A + (size_t)aid * d * r,
+                       h + (size_t)i * block_t * r, block_t, d, r, r);
 }
 
 // Grid (token blocks, column tiles of block_o).
@@ -269,18 +456,13 @@ sgmv_multibank_shrink_kernel(const T* __restrict__ x, BankSet banks,
                              const int* __restrict__ block_row,
                              T* __restrict__ h, int block_t, int d,
                              int max_r) {
-  __shared__ float hs[kMaxBlockT][kMaxRank];
-  const int i = blockIdx.x;
+  const int i = blockIdx.x / cg::this_cluster().num_blocks();
   const int bkt = block_bucket[i];
   const int r = banks.rank[bkt];
   const T* a = static_cast<const T*>(banks.A[bkt]) +
                (size_t)block_row[i] * d * r;
-  shrink_block<T>(x + (size_t)i * block_t * d, a, hs, block_t, d, r);
-  T* h_blk = h + (size_t)i * block_t * max_r;
-  for (int e = threadIdx.x; e < block_t * max_r; e += kThreads) {
-    const int t = e / max_r, c = e % max_r;
-    h_blk[e] = from_f<T>(c < r ? hs[t][c] : 0.f);  // exact: hs holds T
-  }
+  cluster_shrink_to<T>(x + (size_t)i * block_t * d, a,
+                       h + (size_t)i * block_t * max_r, block_t, d, r, max_r);
 }
 
 // B4b. Grid (token blocks, column tiles of block_o): h[:, :r] of the
@@ -311,28 +493,89 @@ bool shape_ok(int block_t, int r) {
   return block_t >= 1 && block_t <= kMaxBlockT && r >= 1 && r <= kMaxRank;
 }
 
-// B4a / B4b take one bank pointer array (A for the shrink, B for the
-// expand) and the buckets' ranks, host arrays of n_buckets entries; every
-// rank must lie in 1..max_r, max_r <= 128.
-int bank_set(const void* const* ptrs, const int* ranks, int n_buckets,
-             int block_t, int max_r, bool is_b, BankSet* banks) {
+// A launch of kern over nblocks token blocks, each a cluster of `split`
+// blocks with the shrink's shared memory at width d: sets the kernel's
+// attributes and fills cfg (whose attrs point at attr).
+template <typename Kern>
+cudaError_t cluster_config(Kern kern, int nblocks, int split, int d,
+                           size_t item, cudaStream_t s,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  if (split < 1 || split > kMaxSplit || d < 1) return cudaErrorInvalidValue;
+  const size_t smem = shrink_smem_bytes(split, d, item);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  *cfg = {};
+  cfg->gridDim = dim3(nblocks * split);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = split;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+// A cluster shape the card cannot schedule makes the launch return an
+// error; nothing runs then.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kern)(Params...), int nblocks, int split, int d,
+                    size_t item, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_config(kern, nblocks, split, d, item, s, &cfg, &attr);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int cluster_occupancy(int split, int d, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(sgmv_fused_blocks_kernel<T>, 1, split,
+                                   d, sizeof(T), nullptr, &cfg, &attr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(clusters,
+                                         sgmv_fused_blocks_kernel<T>, &cfg);
+  return static_cast<int>(err);
+}
+
+// B2 / B4a / B4b take bank pointer arrays and the buckets' ranks, host
+// arrays of n_buckets entries; every rank must lie in 1..max_r, max_r <=
+// 128.
+int bank_set(const void* const* A_ptrs, const void* const* B_ptrs,
+             const int* ranks, int n_buckets, int block_t, int max_r,
+             BankSet* banks) {
   if (n_buckets < 1 || n_buckets > kMaxBuckets ||
       !shape_ok(block_t, max_r))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int b = 0; b < n_buckets; ++b) {
     if (!shape_ok(block_t, ranks[b]) || ranks[b] > max_r)
       return static_cast<int>(cudaErrorInvalidValue);
-    (is_b ? banks->B : banks->A)[b] = ptrs[b];
+    if (A_ptrs) banks->A[b] = A_ptrs[b];
+    if (B_ptrs) banks->B[b] = B_ptrs[b];
     banks->rank[b] = ranks[b];
   }
   return 0;
 }
 
+using bf16 = __nv_bfloat16;
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for arguments the kernel does not take).
-extern "C" int sgmv_fused_blocks_launch(int dtype, const void* x,
+// dtype: 0 = float32, 1 = bfloat16; split: the shrink's cluster size C
+// (1..16). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int sgmv_fused_blocks_launch(int dtype, int split, const void* x,
                                         const void* A, const void* B,
                                         const void* block_adapter, void* out,
                                         int nblocks, int block_t, int d,
@@ -342,79 +585,69 @@ extern "C" int sgmv_fused_blocks_launch(int dtype, const void* x,
   if (nblocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ba = static_cast<const int*>(block_adapter);
-  if (dtype == 0) {
-    sgmv_fused_blocks_kernel<float><<<nblocks, kThreads, 0, s>>>(
+  if (dtype == 0)
+    return launch_clusters(
+        sgmv_fused_blocks_kernel<float>, nblocks, split, d, sizeof(float), s,
         static_cast<const float*>(x), static_cast<const float*>(A),
         static_cast<const float*>(B), ba, static_cast<float*>(out), block_t,
         d, r, d_out);
-  } else if (dtype == 1) {
-    sgmv_fused_blocks_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(A),
-        static_cast<const __nv_bfloat16*>(B), ba,
-        static_cast<__nv_bfloat16*>(out), block_t, d, r, d_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1)
+    return launch_clusters(
+        sgmv_fused_blocks_kernel<bf16>, nblocks, split, d, sizeof(bf16), s,
+        static_cast<const bf16*>(x), static_cast<const bf16*>(A),
+        static_cast<const bf16*>(B), ba, static_cast<bf16*>(out), block_t, d,
+        r, d_out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // A_ptrs / B_ptrs / ranks are host arrays of n_buckets entries.
 extern "C" int sgmv_multibank_blocks_launch(
-    int dtype, const void* x, const void* const* A_ptrs,
-    const void* const* B_ptrs, const int* ranks,
-    int n_buckets, const void* block_bucket, const void* block_row,
-    void* out, int nblocks, int block_t, int d, int d_out, void* stream) {
-  if (n_buckets < 1 || n_buckets > kMaxBuckets || nblocks < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+    int dtype, int split, const void* x, const void* const* A_ptrs,
+    const void* const* B_ptrs, const int* ranks, int n_buckets,
+    const void* block_bucket, const void* block_row, void* out, int nblocks,
+    int block_t, int d, int d_out, void* stream) {
+  if (nblocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   BankSet banks{};
-  for (int b = 0; b < n_buckets; ++b) {
-    if (!shape_ok(block_t, ranks[b]))
-      return static_cast<int>(cudaErrorInvalidValue);
-    banks.A[b] = A_ptrs[b];
-    banks.B[b] = B_ptrs[b];
-    banks.rank[b] = ranks[b];
-  }
+  if (const int err = bank_set(A_ptrs, B_ptrs, ranks, n_buckets, block_t,
+                               kMaxRank, &banks))
+    return err;
   if (nblocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bb = static_cast<const int*>(block_bucket);
   const int* br = static_cast<const int*>(block_row);
-  if (dtype == 0) {
-    sgmv_multibank_blocks_kernel<float><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), banks, bb, br,
-        static_cast<float*>(out), block_t, d, d_out);
-  } else if (dtype == 1) {
-    sgmv_multibank_blocks_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), banks, bb, br,
-        static_cast<__nv_bfloat16*>(out), block_t, d, d_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_clusters(sgmv_multibank_blocks_kernel<float>, nblocks,
+                           split, d, sizeof(float), s,
+                           static_cast<const float*>(x), banks, bb, br,
+                           static_cast<float*>(out), block_t, d, d_out);
+  if (dtype == 1)
+    return launch_clusters(sgmv_multibank_blocks_kernel<bf16>, nblocks,
+                           split, d, sizeof(bf16), s,
+                           static_cast<const bf16*>(x), banks, bb, br,
+                           static_cast<bf16*>(out), block_t, d, d_out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int sgmv_shrink_launch(int dtype, const void* x, const void* A,
-                                  const void* block_adapter, void* h,
-                                  int nblocks, int block_t, int d, int r,
-                                  void* stream) {
+extern "C" int sgmv_shrink_launch(int dtype, int split, const void* x,
+                                  const void* A, const void* block_adapter,
+                                  void* h, int nblocks, int block_t, int d,
+                                  int r, void* stream) {
   if (!shape_ok(block_t, r) || nblocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nblocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ba = static_cast<const int*>(block_adapter);
-  if (dtype == 0) {
-    sgmv_shrink_kernel<float><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(A), ba,
-        static_cast<float*>(h), block_t, d, r);
-  } else if (dtype == 1) {
-    sgmv_shrink_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(A), ba,
-        static_cast<__nv_bfloat16*>(h), block_t, d, r);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_clusters(sgmv_shrink_kernel<float>, nblocks, split, d,
+                           sizeof(float), s, static_cast<const float*>(x),
+                           static_cast<const float*>(A), ba,
+                           static_cast<float*>(h), block_t, d, r);
+  if (dtype == 1)
+    return launch_clusters(sgmv_shrink_kernel<bf16>, nblocks, split, d,
+                           sizeof(bf16), s, static_cast<const bf16*>(x),
+                           static_cast<const bf16*>(A), ba,
+                           static_cast<bf16*>(h), block_t, d, r);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int sgmv_expand_launch(int dtype, const void* h, const void* B,
@@ -432,42 +665,40 @@ extern "C" int sgmv_expand_launch(int dtype, const void* h, const void* B,
         static_cast<const float*>(h), static_cast<const float*>(B), ba,
         static_cast<float*>(out), block_t, r, d_out, block_o);
   } else if (dtype == 1) {
-    sgmv_expand_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(h),
-        static_cast<const __nv_bfloat16*>(B), ba,
-        static_cast<__nv_bfloat16*>(out), block_t, r, d_out, block_o);
+    sgmv_expand_kernel<bf16><<<grid, kThreads, 0, s>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(B), ba,
+        static_cast<bf16*>(out), block_t, r, d_out, block_o);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-
 extern "C" int sgmv_multibank_shrink_launch(
-    int dtype, const void* x, const void* const* A_ptrs, const int* ranks,
-    int n_buckets, const void* block_bucket, const void* block_row, void* h,
-    int nblocks, int block_t, int d, int max_r, void* stream) {
+    int dtype, int split, const void* x, const void* const* A_ptrs,
+    const int* ranks, int n_buckets, const void* block_bucket,
+    const void* block_row, void* h, int nblocks, int block_t, int d,
+    int max_r, void* stream) {
   if (nblocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   BankSet banks{};
-  if (const int err = bank_set(A_ptrs, ranks, n_buckets, block_t, max_r,
-                               false, &banks))
+  if (const int err = bank_set(A_ptrs, nullptr, ranks, n_buckets, block_t,
+                               max_r, &banks))
     return err;
   if (nblocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bb = static_cast<const int*>(block_bucket);
   const int* br = static_cast<const int*>(block_row);
-  if (dtype == 0) {
-    sgmv_multibank_shrink_kernel<float><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), banks, bb, br, static_cast<float*>(h),
-        block_t, d, max_r);
-  } else if (dtype == 1) {
-    sgmv_multibank_shrink_kernel<__nv_bfloat16><<<nblocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), banks, bb, br,
-        static_cast<__nv_bfloat16*>(h), block_t, d, max_r);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_clusters(sgmv_multibank_shrink_kernel<float>, nblocks,
+                           split, d, sizeof(float), s,
+                           static_cast<const float*>(x), banks, bb, br,
+                           static_cast<float*>(h), block_t, d, max_r);
+  if (dtype == 1)
+    return launch_clusters(sgmv_multibank_shrink_kernel<bf16>, nblocks,
+                           split, d, sizeof(bf16), s,
+                           static_cast<const bf16*>(x), banks, bb, br,
+                           static_cast<bf16*>(h), block_t, d, max_r);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int sgmv_multibank_expand_launch(
@@ -478,8 +709,8 @@ extern "C" int sgmv_multibank_expand_launch(
   if (nblocks < 0 || d_out < 1 || block_o < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   BankSet banks{};
-  if (const int err = bank_set(B_ptrs, ranks, n_buckets, block_t, max_r,
-                               true, &banks))
+  if (const int err = bank_set(nullptr, B_ptrs, ranks, n_buckets, block_t,
+                               max_r, &banks))
     return err;
   if (nblocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -491,11 +722,20 @@ extern "C" int sgmv_multibank_expand_launch(
         static_cast<const float*>(h), banks, bb, br, static_cast<float*>(out),
         block_t, max_r, d_out, block_o);
   } else if (dtype == 1) {
-    sgmv_multibank_expand_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(h), banks, bb, br,
-        static_cast<__nv_bfloat16*>(out), block_t, max_r, d_out, block_o);
+    sgmv_multibank_expand_kernel<bf16><<<grid, kThreads, 0, s>>>(
+        static_cast<const bf16*>(h), banks, bb, br, static_cast<bf16*>(out),
+        block_t, max_r, d_out, block_o);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `split` blocks of B1's kernel (bf16 when dtype is
+// 1, else fp32) the card can hold at once at width d, into *clusters; 0
+// means it cannot schedule one. Returns a CUDA error code.
+extern "C" int sgmv_cluster_occupancy(int dtype, int split, int d,
+                                      int* clusters) {
+  return dtype == 1 ? cluster_occupancy<bf16>(split, d, clusters)
+                    : cluster_occupancy<float>(split, d, clusters);
 }

@@ -9,6 +9,11 @@ Pallas kernel's is; for Sq == Sk that is ordinary causal attention, for
 Sq != Sk it differs from the JAX oracle ``flash_mha_ref``, whose mask is
 ``tril(k=Sk-Sq)``.
 
+Two kernels serve it: in bf16 one on the tensor cores (64 x 64 tiles of
+its own, p rounded to bf16 as the operand of p.v, the scale applied to
+the fp32 score), in fp32 one on CUDA cores (the wrapper's tiles; q
+scaled before the product). ``csrc/flash.cu`` states the contract.
+
 On a CPU tensor the wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. ``flash_mha.launches`` counts kernel
 launches.
@@ -19,11 +24,22 @@ import ctypes
 
 import torch
 
-from .build import load_library
+from .build import launch as _launch
 
 NEG_INF = -1e30                          # the Pallas kernel's sentinel
 MAX_TILE = 128                           # block_q, block_k and hd
+BF16_TILE = (64, 64)                     # the bf16 kernel's (q, kv) tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_CARD = "cuda"                           # the device type it runs on
+
+
+def kernel_tile(dtype, Sq: int, Sk: int, block_q: int = 128,
+                block_k: int = 128):
+    """The (q rows, keys) tile the kernel of ``dtype`` runs: its own in
+    bf16, min(block, S) from the wrapper's arguments in fp32."""
+    if dtype == torch.bfloat16:
+        return BF16_TILE
+    return min(block_q, Sq), min(block_k, Sk)
 
 
 def _default_scale(hd: int, scale):
@@ -53,7 +69,7 @@ def flash_mha_plain(q, k, v, *, causal: bool = True, scale=None):
 
 
 def _check(q, k, v, block_q, block_k):
-    if q.device.type != "cuda":
+    if q.device.type != _CARD:
         raise ValueError(f"flash_mha runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -79,16 +95,28 @@ def _check(q, k, v, block_q, block_k):
     for name, b in (("block_q", block_q), ("block_k", block_k)):
         if not 1 <= b <= MAX_TILE:
             raise ValueError(f"{name}={b} outside 1..{MAX_TILE}")
+    if q.dtype == torch.bfloat16:
+        # 16-byte cp.async loads: every row of q, k and v starts aligned
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+                raise ValueError(
+                    f"{name}: the bf16 kernel needs 16-byte aligned rows "
+                    f"(data_ptr % 16 == 0, strides[:3] multiples of 8), "
+                    f"got data_ptr % 16 = {t.data_ptr() % 16}, strides "
+                    f"{tuple(t.stride())}")
 
 
 def flash_mha(q, k, v, *, causal: bool = True, scale=None,
               block_q: int = 128, block_k: int = 128):
     """B5. q: (B, H, Sq, hd); k, v: (B, H, Sk, hd), any strides with a
     unit stride on hd (a (B, S, H, hd) tensor's ``transpose(1, 2)`` is
-    read in place). Tiles of min(block_q, Sq) queries and min(block_k, Sk)
-    keys, each at most 128; hd at most 128. Returns (B, H, Sq, hd) in q's
-    type; on CUDA its memory is laid out (B, Sq, H, hd), so
-    ``out.transpose(1, 2)`` is contiguous."""
+    read in place); hd at most 128. ``block_q`` and ``block_k`` (each
+    1..128, validated for both types) tile the fp32 kernel: min(block_q,
+    Sq) queries and min(block_k, Sk) keys. The bf16 kernel runs its own
+    64 x 64 tiles (``BF16_TILE``) and needs 16-byte aligned rows (data
+    pointer and the strides over (B, H, S)); the wrapper raises otherwise.
+    Returns (B, H, Sq, hd) in q's type; on CUDA its memory is laid out
+    (B, Sq, H, hd), so ``out.transpose(1, 2)`` is contiguous."""
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     scale = _default_scale(hd, scale)
@@ -99,14 +127,10 @@ def flash_mha(q, k, v, *, causal: bool = True, scale=None,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = load_library().flash_mha_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), strides, B, H, Sq, Sk, hd, min(block_q, Sq),
-            min(block_k, Sk), int(causal), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_mha_launch failed: CUDA error {err}")
+    _launch("flash_mha_launch", q.device, _DTYPE_CODE[q.dtype], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, B, H, Sq,
+            Sk, hd, min(block_q, Sq), min(block_k, Sk), int(causal),
+            float(scale))
     flash_mha.launches += 1
     return out
 

@@ -19,11 +19,19 @@ and their plain-torch versions.
   all-reduce across ranks), then y = h_blk[:, :r_b] @ B_b[row]. At one
   rank the pair gives B2's output bit for bit.
 
+B1, B2, B3a and B4a run one shrink: each token block is a cluster of C
+thread blocks, each summing x_blk @ A over its own d-slice, and the C
+partials are added in rank order before h is rounded to x's type. C is
+``shrink_split(d, dtype)``, the one place that decides it, so every
+kernel sums an entry of h in the same order and the bit-identity
+promises above hold.
+
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
 a plain integer attribute, ``launches``. The ``*_ref`` plain versions run
-the same block layout with the same fp32 sums and the same cast of the
-intermediate ``h`` to the input type between the two products.
+the same block layout with the same fp32 sums (in torch's order, not the
+kernels' slices) and the same cast of the intermediate ``h`` to the
+input type between the two products.
 """
 from __future__ import annotations
 
@@ -31,12 +39,32 @@ import ctypes
 
 import torch
 
-from .build import load_library
+from .build import launch as _launch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_CARD = "cuda"                     # the device type the kernels run on
 MAX_BLOCK_T = 16
 MAX_RANK = 128
 MAX_BUCKETS = 8
+SLICE = 128                        # d-slice a cluster block aims for
+
+
+def shrink_split(d: int, dtype) -> int:
+    """C, the number of thread blocks (a cluster) that share one token
+    block's shrink, each summing x_blk @ A over a d-slice of ceil(d / C)
+    rows: the least of 4, 8 and 16 whose slice is at most ``SLICE`` rows,
+    else 16 (4096 and 2048 -> 16, 1024 -> 8, 512 and less -> 4). On the
+    H100, B1's decode call at d = 4096 ran fastest at 16
+    (``chip_smoke.py`` phase 3 times it at 4, 8 and 16). A function of d
+    and the type only: never of the rank, the bucket, block_t or the
+    kernel, so that every SGMV kernel sums an entry of h in the same
+    order."""
+    if d < 1 or dtype not in _DTYPE_CODE:
+        raise ValueError(f"no shrink split for d={d}, dtype={dtype}")
+    split = 4
+    while split < 16 and d > split * SLICE:
+        split *= 2
+    return split
 
 
 def _block_products(x_pad, W, block_adapter, block_t):
@@ -132,7 +160,7 @@ def sgmv_multibank_expand_blocks_ref(h_pad, B_banks, block_bucket,
     return out
 
 def _check_x(x_pad, block_t):
-    if x_pad.device.type != "cuda":
+    if x_pad.device.type != _CARD:
         raise ValueError(f"SGMV kernels run on CUDA or CPU tensors, got "
                          f"{x_pad.device}")
     if x_pad.dtype not in _DTYPE_CODE:
@@ -175,12 +203,6 @@ def _check_index(x_pad, t, nblocks, name):
                          f"tensor on {x_pad.device}")
 
 
-def _launch(fn_name, *args):
-    err = getattr(load_library(), fn_name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
-
-
 def _bucket_ptrs(banks, rank_axis):
     nb = len(banks)
     return ((ctypes.c_void_p * nb)(*[W.data_ptr() for W in banks]),
@@ -207,12 +229,11 @@ def sgmv_fused_blocks(x_pad, A, B, block_adapter, *, block_t: int = 16):
     nblocks = T_pad // block_t
     _check_index(x_pad, block_adapter, nblocks, "block_adapter")
     out = torch.empty((T_pad, d_out), dtype=x_pad.dtype, device=x_pad.device)
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("sgmv_fused_blocks_launch", _DTYPE_CODE[x_pad.dtype],
-                x_pad.data_ptr(), A.data_ptr(), B.data_ptr(),
-                block_adapter.data_ptr(), out.data_ptr(), nblocks, block_t,
-                d, r, d_out, stream)
+    _launch("sgmv_fused_blocks_launch", x_pad.device,
+            _DTYPE_CODE[x_pad.dtype], shrink_split(d, x_pad.dtype),
+            x_pad.data_ptr(), A.data_ptr(), B.data_ptr(),
+            block_adapter.data_ptr(), out.data_ptr(), nblocks, block_t, d, r,
+            d_out)
     sgmv_fused_blocks.launches += 1
     return out
 
@@ -244,12 +265,11 @@ def sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row, *,
     a_ptrs, ranks = _bucket_ptrs([A for A, _ in banks], 2)
     b_ptrs, _ = _bucket_ptrs([B for _, B in banks], 1)
     out = torch.empty((T_pad, d_out), dtype=x_pad.dtype, device=x_pad.device)
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("sgmv_multibank_blocks_launch", _DTYPE_CODE[x_pad.dtype],
-                x_pad.data_ptr(), a_ptrs, b_ptrs, ranks, nb,
-                block_bucket.data_ptr(), block_row.data_ptr(),
-                out.data_ptr(), nblocks, block_t, d, d_out, stream)
+    _launch("sgmv_multibank_blocks_launch", x_pad.device,
+            _DTYPE_CODE[x_pad.dtype], shrink_split(d, x_pad.dtype),
+            x_pad.data_ptr(), a_ptrs, b_ptrs, ranks, nb,
+            block_bucket.data_ptr(), block_row.data_ptr(), out.data_ptr(),
+            nblocks, block_t, d, d_out)
     sgmv_multibank_blocks.launches += 1
     return out
 
@@ -271,11 +291,9 @@ def sgmv_shrink(x_pad, A, block_adapter, *, block_t: int = 16):
     nblocks = T_pad // block_t
     _check_index(x_pad, block_adapter, nblocks, "block_adapter")
     h = torch.empty((T_pad, r), dtype=x_pad.dtype, device=x_pad.device)
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("sgmv_shrink_launch", _DTYPE_CODE[x_pad.dtype],
-                x_pad.data_ptr(), A.data_ptr(), block_adapter.data_ptr(),
-                h.data_ptr(), nblocks, block_t, d, r, stream)
+    _launch("sgmv_shrink_launch", x_pad.device, _DTYPE_CODE[x_pad.dtype],
+            shrink_split(d, x_pad.dtype), x_pad.data_ptr(), A.data_ptr(),
+            block_adapter.data_ptr(), h.data_ptr(), nblocks, block_t, d, r)
     sgmv_shrink.launches += 1
     return h
 
@@ -302,12 +320,9 @@ def sgmv_expand(h_pad, B, block_adapter, *, block_t: int = 16,
     nblocks = T_pad // block_t
     _check_index(h_pad, block_adapter, nblocks, "block_adapter")
     out = torch.empty((T_pad, d_out), dtype=h_pad.dtype, device=h_pad.device)
-    with torch.cuda.device(h_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("sgmv_expand_launch", _DTYPE_CODE[h_pad.dtype],
-                h_pad.data_ptr(), B.data_ptr(), block_adapter.data_ptr(),
-                out.data_ptr(), nblocks, block_t, r, d_out,
-                min(block_o, d_out), stream)
+    _launch("sgmv_expand_launch", h_pad.device, _DTYPE_CODE[h_pad.dtype],
+            h_pad.data_ptr(), B.data_ptr(), block_adapter.data_ptr(),
+            out.data_ptr(), nblocks, block_t, r, d_out, min(block_o, d_out))
     sgmv_expand.launches += 1
     return out
 
@@ -336,12 +351,11 @@ def sgmv_multibank_shrink(x_pad, A_banks, block_bucket, block_row, *,
     max_r = max(A.shape[-1] for A in A_banks)
     a_ptrs, ranks = _bucket_ptrs(A_banks, 2)
     h = torch.empty((T_pad, max_r), dtype=x_pad.dtype, device=x_pad.device)
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("sgmv_multibank_shrink_launch", _DTYPE_CODE[x_pad.dtype],
-                x_pad.data_ptr(), a_ptrs, ranks, len(A_banks),
-                block_bucket.data_ptr(), block_row.data_ptr(), h.data_ptr(),
-                nblocks, block_t, d, max_r, stream)
+    _launch("sgmv_multibank_shrink_launch", x_pad.device,
+            _DTYPE_CODE[x_pad.dtype], shrink_split(d, x_pad.dtype),
+            x_pad.data_ptr(), a_ptrs, ranks, len(A_banks),
+            block_bucket.data_ptr(), block_row.data_ptr(), h.data_ptr(),
+            nblocks, block_t, d, max_r)
     sgmv_multibank_shrink.launches += 1
     return h
 
@@ -377,12 +391,11 @@ def sgmv_multibank_expand(h_pad, B_banks, block_bucket, block_row, *,
     _check_index(h_pad, block_row, nblocks, "block_row")
     b_ptrs, ranks = _bucket_ptrs(B_banks, 1)
     out = torch.empty((T_pad, d_out), dtype=h_pad.dtype, device=h_pad.device)
-    with torch.cuda.device(h_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("sgmv_multibank_expand_launch", _DTYPE_CODE[h_pad.dtype],
-                h_pad.data_ptr(), b_ptrs, ranks, len(B_banks),
-                block_bucket.data_ptr(), block_row.data_ptr(), out.data_ptr(),
-                nblocks, block_t, max_r, d_out, min(block_o, d_out), stream)
+    _launch("sgmv_multibank_expand_launch", h_pad.device,
+            _DTYPE_CODE[h_pad.dtype], h_pad.data_ptr(), b_ptrs, ranks,
+            len(B_banks), block_bucket.data_ptr(), block_row.data_ptr(),
+            out.data_ptr(), nblocks, block_t, max_r, d_out,
+            min(block_o, d_out))
     sgmv_multibank_expand.launches += 1
     return out
 

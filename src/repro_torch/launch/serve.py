@@ -10,8 +10,8 @@ Example (on the card, full width, bf16 weights from a seed):
 CPU with the kernels' plain versions. Base and adapter weights are random
 from ``--seed``, the adapters' B nonzero (a fresh bank's B is zero, which
 would make every delta 0). ``--profile`` traces the served run with
-``torch.profiler`` and prints device time by kernel and the device's busy
-share of the run.
+``torch.profiler`` and prints device time by kernel, the device's busy
+share of the run, and the idle gaps between kernels by size.
 
 ``--mesh 1,TP`` serves on a tensor-parallel engine of TP ranks, one
 process each, spawned here (``launch.mesh.spawn``) and meeting over
@@ -124,7 +124,26 @@ def profiled(fn, device):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"profile: {e.self_device_time_total / 1e3:10.2f} ms "
               f"{e.count:7d} x  {e.key[:90]}")
+    _print_gaps(prof)
     return out
+
+
+def _print_gaps(prof, top=5):
+    """The device's idle time between consecutive kernels (time the host
+    kept it waiting: launch overhead, host work, syncs), by size, and the
+    largest gaps with the kernels around them."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    gaps = sorted(((b[0] - a[1], a[2], b[2]) for a, b in
+                   zip(spans, spans[1:]) if b[0] > a[1]), reverse=True)
+    for lo, hi in ((0, 10), (10, 100), (100, 1000), (1000, float("inf"))):
+        sel = [g for g, _, _ in gaps if lo <= g < hi]
+        print(f"profile: gaps {lo}-{hi} us: {len(sel)}, "
+              f"{sum(sel) / 1e3:.2f} ms")
+    for g, before, after in gaps[:top]:
+        print(f"profile: gap {g / 1e3:8.3f} ms after {before[:45]!r} "
+              f"before {after[:45]!r}")
 
 
 def _serve_rank(rank: int, dp: int, tp: int, args) -> None:
