@@ -33,11 +33,15 @@ Phases (any failure raises; the script then exits non-zero):
                card held busy while the host enqueues each call), the
                bound from the bytes and operations the call needs, and for
                B5 the time of ``scaled_dot_product_attention``; each line
-               names the shrink split C of B1, B2, B3a and B4a and B5's
-               tile. Then, for B1 in bf16 on its decode and prefill
-               calls: its time at C = 4, 8 and 16 beside the cluster
-               occupancy the card reports, and a yardstick, ``A[aid]``-
-               gathered ``torch.bmm`` then ``torch.bmm``.
+               names the shrink split C of B1, B2, B3a and B4a, the
+               expand's tile of B1, B2, B3b and B4b (``mma`` on bf16
+               tensor cores, ``fma`` in fp32; B3b's and B4b's grid) and
+               B5's tile. A ``yardstick`` line times B3b's bf16 calls as
+               ``B[aid]``-gathered ``torch.bmm``. Then, for B1 in bf16 on
+               its decode and prefill calls: its time at C = 4, 8 and 16
+               beside the cluster occupancy the card reports, and a
+               yardstick, ``A[aid]``-gathered ``torch.bmm`` then
+               ``torch.bmm``.
   4. unfused — the path through B3a/B3b: ``sgmv`` and
                ``sgmv_rank_bucketed`` on the engine's own copied dispatcher
                calls, and ``apply_bank_sgmv(fused=False)`` on the engine's
@@ -70,8 +74,9 @@ Phases (any failure raises; the script then exits non-zero):
                held NaN) and B4b ``sgmv_multibank_expand`` (bucketed) and
                B3a/B3b (padded) at d_local = d_out_local = 2048, decode
                and prefill, and B5 on both prefill groups' 16 local
-               heads; and B4a then B4b equal to B2 bit for bit on phase
-               2's recorded B2 calls (tp = 1 shapes).
+               heads, with B3b's yardstick on its two calls; and B4a
+               then B4b equal to B2 bit for bit on phase 2's recorded B2
+               calls (tp = 1 shapes).
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -350,15 +355,28 @@ def _plains():
 
 def _plan(kid, args, dtype):
     """What shapes the kernel's work: the shrink split C of B1, B2, B3a
-    and B4a (``sgmv.shrink_split``), B5's (q, kv) tile."""
+    and B4a (``sgmv.shrink_split``); the expand's output tile of B1, B2,
+    B3b and B4b, on the tensor cores (``mma``, bf16) or CUDA cores
+    (``fma``, fp32), with B3b's and B4b's grid (token blocks, column
+    tiles); B5's (q, kv) tile."""
     from repro_torch.kernels import flash, sgmv
     if kid == "B5":
         q, k = args[0], args[1]
         return "tile={}x{}".format(*flash.kernel_tile(dtype, q.shape[2],
                                                       k.shape[2]))
-    if kid in ("B3b", "B4b"):
-        return "split=none"
-    return f"split={sgmv.shrink_split(args[0].shape[1], dtype)}"
+    plan = []
+    if kid not in ("B3b", "B4b"):
+        plan.append(f"split={sgmv.shrink_split(args[0].shape[1], dtype)}")
+    if kid not in ("B3a", "B4a"):
+        op = "mma" if dtype == torch.bfloat16 else "fma"
+        tiled = kid in ("B3b", "B4b")
+        cols = sgmv.EXPAND_COLS if tiled else sgmv.FUSED_EXPAND_COLS
+        plan.append(f"expand={op}{BLOCK_T}x{cols}")
+        if tiled:
+            W = args[1][0] if kid == "B4b" else args[1]
+            plan.append(f"grid=({args[0].shape[0] // BLOCK_T},"
+                        f"{-(-W.shape[-1] // cols)})")
+    return " ".join(plan)
 
 
 def _check_and_time(kid, layout, args0, kw, dest, flush, results):
@@ -455,14 +473,30 @@ def _b1_splits_and_yardstick(calls, flush):
             "library calls and two gathers, not one call)")
 
 
+def _b3b_yardstick(layout, h, B, ba, flush):
+    """B3b's yardstick on one of its bf16 calls, timed only (the port
+    never calls it): ``B[block_adapter]`` gathered, then ``torch.bmm`` of
+    the token blocks."""
+    nb = h.shape[0] // BLOCK_T
+    hb = h[:nb * BLOCK_T].view(nb, BLOCK_T, h.shape[1])
+    idx = ba[:nb].long()
+    ms = _time_ms(lambda: torch.bmm(hb, B[idx]), flush)
+    log(f"yardstick: B3b layout={layout} h={tuple(h.shape)} "
+        f"d_out={B.shape[-1]} gathered torch.bmm bf16 ms={ms:.4f} (a "
+        "gather and a library call, not one call)")
+
+
 def phase_kernels(dev, calls):
     """Each kernel wrapper and its plain version on the arguments of the
     main path's own calls (bf16, as the engine ran them, and the same
-    tensors cast to fp32); B1's split sweep and yardstick."""
+    tensors cast to fp32); B1's split sweep and yardstick, B3b's
+    yardstick."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     results = {}
     for kid, layout, args0, kw, dest in _kernel_cases(calls):
         _check_and_time(kid, layout, args0, kw, dest, flush, results)
+        if kid == "B3b":
+            _b3b_yardstick(layout, *args0, flush)
     _b1_splits_and_yardstick(calls, flush)
     del flush
     return results
@@ -956,6 +990,8 @@ def phase_split(dev, cfg, tp_calls, b2_calls):
                 label = layout if kid in ("B4a", "B4b") else \
                     f"tp{TP}-{layout}"
             _check_and_time(kid, label, args, kw, dest, flush, results)
+            if kid == "B3b":
+                _b3b_yardstick(label, *args, flush)
     del flush
     for layout in ("decode", "prefill"):
         (x_pad, banks, bkt, row), _, _ = b2_calls[layout]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every source under ``csrc/`` is compiled at first use with ``nvcc``, one
-process per source, all started together, and the objects are linked
+process per source, all started together (the headers ``csrc/*.cuh``
+they include are hashed with them), and the objects are linked
 into one shared library with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
@@ -111,7 +112,7 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_shrink_launch.restype = i32
             lib.sgmv_expand_launch.argtypes = [
-                i32, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+                i32, vp, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_expand_launch.restype = i32
             lib.sgmv_multibank_shrink_launch.argtypes = [
                 i32, i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32,
@@ -119,7 +120,7 @@ def load_library() -> ctypes.CDLL:
             lib.sgmv_multibank_shrink_launch.restype = i32
             lib.sgmv_multibank_expand_launch.argtypes = [
                 i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp,
-                vp, vp, i32, i32, i32, i32, i32, vp]
+                vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_multibank_expand_launch.restype = i32
             lib.flash_mha_launch.argtypes = [
                 i32, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),

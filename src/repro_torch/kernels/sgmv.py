@@ -23,8 +23,13 @@ B1, B2, B3a and B4a run one shrink: each token block is a cluster of C
 thread blocks, each summing x_blk @ A over its own d-slice, and the C
 partials are added in rank order before h is rounded to x's type. C is
 ``shrink_split(d, dtype)``, the one place that decides it, so every
-kernel sums an entry of h in the same order and the bit-identity
-promises above hold.
+kernel sums an entry of h in the same order. B1, B2, B3b and B4b run one
+expand: in bf16 on the tensor cores, the 16-wide k chunks of the rank in
+order, each one ``mma`` product accumulated in fp32 (chunks zero past
+the rank); in fp32 an FMA chain over the rank in order. An output's sum
+never depends on the kernel, the bank's rank or block_t, so the
+bit-identity promises above hold. B3b and B4b tile the output columns
+in ``EXPAND_COLS`` a thread block, whatever ``block_o``.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -47,6 +52,8 @@ MAX_BLOCK_T = 16
 MAX_RANK = 128
 MAX_BUCKETS = 8
 SLICE = 128                        # d-slice a cluster block aims for
+EXPAND_COLS = 64                   # B3b/B4b: output columns a thread block
+FUSED_EXPAND_COLS = 256            # B1/B2: columns a cluster block's pass
 
 
 def shrink_split(d: int, dtype) -> int:
@@ -303,11 +310,12 @@ sgmv_shrink.launches = 0
 
 def sgmv_expand(h_pad, B, block_adapter, *, block_t: int = 16,
                 block_o: int = 2048):
-    """B3b: y = h_blk @ B[block_adapter[i]] for every whole block i, the
-    output columns in tiles of ``block_o`` (a second grid dimension; no
-    padding of d_out, so nothing is sliced back). Returns (T_pad, d_out)
-    in h's type; on CUDA rows past the last whole block are left
-    unwritten."""
+    """B3b: y = h_blk @ B[block_adapter[i]] for every whole block i.
+    Returns (T_pad, d_out) in h's type; on CUDA rows past the last whole
+    block are left unwritten. ``block_o`` mirrors the JAX call's output
+    tile and is validated; on the card it does not shape the grid, which
+    is (token blocks, ceil(d_out / EXPAND_COLS)), and d_out is never
+    padded."""
     if h_pad.device.type == "cpu":
         return sgmv_expand_blocks_ref(h_pad, B, block_adapter,
                                       block_t=block_t)
@@ -322,7 +330,7 @@ def sgmv_expand(h_pad, B, block_adapter, *, block_t: int = 16,
     out = torch.empty((T_pad, d_out), dtype=h_pad.dtype, device=h_pad.device)
     _launch("sgmv_expand_launch", h_pad.device, _DTYPE_CODE[h_pad.dtype],
             h_pad.data_ptr(), B.data_ptr(), block_adapter.data_ptr(),
-            out.data_ptr(), nblocks, block_t, r, d_out, min(block_o, d_out))
+            out.data_ptr(), nblocks, block_t, r, d_out)
     sgmv_expand.launches += 1
     return out
 
@@ -365,12 +373,13 @@ sgmv_multibank_shrink.launches = 0
 
 def sgmv_multibank_expand(h_pad, B_banks, block_bucket, block_row, *,
                           block_t: int = 16, block_o: int = 2048):
-    """B4b: y = h_blk[:, :r_b] @ B_b[row] for every whole block, the
-    output columns in tiles of ``block_o`` (a second grid dimension, the
-    last tile guarded: no padding of d_out). B_banks: sequence of B_b
-    (Na_b, r_b, d_out_local) sharing d_out_local, r_b <= max_r. Returns
-    (T_pad, d_out_local) in h's type; on CUDA rows past the last whole
-    block are left unwritten."""
+    """B4b: y = h_blk[:, :r_b] @ B_b[row] for every whole block (h's
+    columns r_b..max_r are not read). B_banks: sequence of B_b (Na_b, r_b,
+    d_out_local) sharing d_out_local, r_b <= max_r. Returns (T_pad,
+    d_out_local) in h's type; on CUDA rows past the last whole block are
+    left unwritten. ``block_o`` is validated and, as in ``sgmv_expand``,
+    does not shape the card's grid (token blocks, ceil(d_out_local /
+    EXPAND_COLS))."""
     B_banks = list(B_banks)
     if h_pad.device.type == "cpu":
         return sgmv_multibank_expand_blocks_ref(h_pad, B_banks, block_bucket,
@@ -394,8 +403,7 @@ def sgmv_multibank_expand(h_pad, B_banks, block_bucket, block_row, *,
     _launch("sgmv_multibank_expand_launch", h_pad.device,
             _DTYPE_CODE[h_pad.dtype], h_pad.data_ptr(), b_ptrs, ranks,
             len(B_banks), block_bucket.data_ptr(), block_row.data_ptr(),
-            out.data_ptr(), nblocks, block_t, max_r, d_out,
-            min(block_o, d_out))
+            out.data_ptr(), nblocks, block_t, max_r, d_out)
     sgmv_multibank_expand.launches += 1
     return out
 
