@@ -41,13 +41,21 @@ Phases (any failure raises; the script then exits non-zero):
                its decode and prefill calls: its time at C = 4, 8 and 16
                beside the cluster occupancy the card reports, and a
                yardstick, ``A[aid]``-gathered ``torch.bmm`` then
-               ``torch.bmm``.
+               ``torch.bmm``. B1, B2, B3a and the decode lines print each
+               block's live-row count as the path passed it; B2 runs at
+               the block_t the path chose (``tune.block_plan``: 64 on the
+               2 x 1000 group). ``plan:`` lines: B2 on that group laid out
+               at block_t 16, 32 and 64 (plain-version check, ms, resident
+               clusters, the outputs equal bit for bit).
   4. unfused — the path through B3a/B3b: ``sgmv`` and
                ``sgmv_rank_bucketed`` on the engine's own copied dispatcher
                calls, and ``apply_bank_sgmv(fused=False)`` on the engine's
                own banks (4 targets, layer 0, 8 and 512 tokens), each bit
-               for bit equal to its fused counterpart; ``bgmv`` against
-               its plain version and bit for bit against ``sgmv_fused``.
+               for bit equal to its fused counterpart (B2 at the plan's
+               block_t == the host loop at 16 == B1 on the zero-padded
+               bank, bf16 and fp32, on the bucketed calls); ``bgmv``
+               against its plain version and bit for bit against
+               ``sgmv_fused``.
   5. parity  — fp32, full width, 2 layers: kernel and einsum engines,
                padded and bucketed, emit the same tokens; prefill logits
                agree within 1e-3, and the LoRA delta moves them by more.
@@ -75,8 +83,9 @@ Phases (any failure raises; the script then exits non-zero):
                B3a/B3b (padded) at d_local = d_out_local = 2048, decode
                and prefill, and B5 on both prefill groups' 16 local
                heads, with B3b's yardstick on its two calls; and B4a
-               then B4b equal to B2 bit for bit on phase 2's recorded B2
-               calls (tp = 1 shapes).
+               then B4b (block_t 16) equal to B2 (the plan's block_t)
+               bit for bit on phase 2's recorded bucketed calls (tp = 1
+               shapes).
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -146,6 +155,8 @@ def _copy(a):
         return a.clone()
     if isinstance(a, (tuple, list)):
         return type(a)(_copy(v) for v in a)
+    if isinstance(a, dict):
+        return {k: _copy(v) for k, v in a.items()}
     return a
 
 
@@ -154,6 +165,8 @@ def _move(a, device):
         return a.to(device)
     if isinstance(a, (tuple, list)):
         return type(a)(_move(v, device) for v in a)
+    if isinstance(a, dict):
+        return {k: _move(v, device) for k, v in a.items()}
     return a
 
 
@@ -225,7 +238,7 @@ class MainPathCalls:
                 if kept is None or keep(rows, kept):
                     self._rows[(name, layout)] = rows
                     dest = None if self._dest is None else self._dest.clone()
-                    self.calls[(name, layout)] = (_copy(args), dict(kw),
+                    self.calls[(name, layout)] = (_copy(args), _copy(kw),
                                                   dest)
             return fn(*args, **kw)
         return call
@@ -237,15 +250,19 @@ class MainPathCalls:
 # ---------------------------------------------------------------------------
 
 
-def _sgmv_work(kid, args, dest, item):
+def _block_t(kw):
+    return kw.get("block_t") or BLOCK_T
+
+
+def _sgmv_work(kid, args, kw, dest, item):
     """(bytes, FLOPs) an SGMV call needs: the live rows of its input read
     and of its output written, each used adapter's weights once at the
-    rank the call gives it, the block indices, and 2 * r FLOPs per live
-    token for each column its weights span (B1/B2: d + d_out, B3a/B4a:
-    d, B3b/B4b: d_out)."""
+    rank the call gives it, the block indices (and live counts), and 2 *
+    r FLOPs per live token for each column its weights span (B1/B2: d +
+    d_out, B3a/B4a: d, B3b/B4b: d_out)."""
     x_pad = args[0]
     T = dest.shape[0]
-    live = (dest.long() // BLOCK_T).tolist()
+    live = (dest.long() // _block_t(kw)).tolist()
     if kid in ("B4a", "B4b"):
         W, bkt, row = args[1:]
         ax = 2 if kid == "B4a" else 1
@@ -262,7 +279,9 @@ def _sgmv_work(kid, args, dest, item):
         else:
             w_cols = W[0].shape[-1]
             rows = sum(tok_r) + T * w_cols
-        byts = (rows + sum(used.values()) * w_cols) * item + 8 * len(bkt)
+        n_idx = 3 if kid == "B4a" else 2        # B4a: + the live counts
+        byts = (rows + sum(used.values()) * w_cols) * item \
+            + 4 * n_idx * len(bkt)
         return byts, sum(2 * r * w_cols for r in tok_r)
     if kid == "B2":
         banks, bkt, row = args[1:]
@@ -271,7 +290,7 @@ def _sgmv_work(kid, args, dest, item):
         used = {(bkt[i], row[i]): rank[bkt[i]] for i in set(live)}
         tok_r = [rank[bkt[i]] for i in live]
         x_cols, y_cols = x_pad.shape[1], banks[0][1].shape[-1]
-        idx_bytes = 8 * len(bkt)
+        idx_bytes = 12 * len(bkt)                # bucket, row, live
     else:
         W, ba = args[1], args[-1].tolist()
         r = W.shape[1] if kid == "B3b" else W.shape[-1]
@@ -280,7 +299,7 @@ def _sgmv_work(kid, args, dest, item):
         x_cols = x_pad.shape[1]
         y_cols = {"B1": args[2].shape[-1], "B3a": r,
                   "B3b": W.shape[-1]}[kid]
-        idx_bytes = 4 * len(ba)
+        idx_bytes = (4 if kid == "B3b" else 8) * len(ba)   # + live counts
     w_cols = {"B3a": x_cols, "B3b": y_cols}.get(kid, x_cols + y_cols)
     byts = (T * (x_cols + y_cols) + sum(used.values()) * w_cols) * item \
         + idx_bytes
@@ -327,13 +346,14 @@ def _kernel_cases(calls):
     cases = []
     for kid in ("B1", "B2"):
         for layout in ("decode", "prefill"):
-            args, _, dest = calls[(KERNELS[kid][0], layout)]
-            cases.append((kid, layout, args, {"block_t": BLOCK_T}, dest))
+            # as the path called it: block_t (B2: the plan's) and the
+            # blocks' live-row counts
+            args, kw, dest = calls[(KERNELS[kid][0], layout)]
+            cases.append((kid, layout, args, kw, dest))
     for layout in ("decode", "prefill"):
-        (x_pad, A, B, ba), _, dest = calls[("sgmv_fused_blocks", layout)]
-        h = sgmv.sgmv_shrink_blocks_ref(x_pad, A, ba, block_t=BLOCK_T)
-        cases.append(("B3a", layout, (x_pad, A, ba), {"block_t": BLOCK_T},
-                      dest))
+        (x_pad, A, B, ba), kw, dest = calls[("sgmv_fused_blocks", layout)]
+        h = sgmv.sgmv_shrink_blocks_ref(x_pad, A, ba, **kw)
+        cases.append(("B3a", layout, (x_pad, A, ba), kw, dest))
         cases.append(("B3b", layout, (h, B, ba), {"block_t": BLOCK_T}, dest))
     args, kw, _ = calls[("flash_mha", "prefill")]
     assert args[0].shape[0] == 2 and args[0].shape[2] == 1000, \
@@ -353,7 +373,7 @@ def _plains():
             "B5": flash.flash_mha_plain}
 
 
-def _plan(kid, args, dtype):
+def _plan(kid, args, dtype, bt=BLOCK_T):
     """What shapes the kernel's work: the shrink split C of B1, B2, B3a
     and B4a (``sgmv.shrink_split``); the expand's output tile of B1, B2,
     B3b and B4b, on the tensor cores (``mma``, bf16) or CUDA cores
@@ -370,11 +390,13 @@ def _plan(kid, args, dtype):
     if kid not in ("B3a", "B4a"):
         op = "mma" if dtype == torch.bfloat16 else "fma"
         tiled = kid in ("B3b", "B4b")
-        cols = sgmv.EXPAND_COLS if tiled else sgmv.FUSED_EXPAND_COLS
-        plan.append(f"expand={op}{BLOCK_T}x{cols}")
+        wide = bt > sgmv.TILE_T                  # B2's 64-row geometry
+        cols = sgmv.EXPAND_COLS if tiled else (
+            sgmv.WIDE_EXPAND_COLS if wide else sgmv.FUSED_EXPAND_COLS)
+        plan.append(f"expand={op}{64 if wide else BLOCK_T}x{cols}")
         if tiled:
             W = args[1][0] if kid == "B4b" else args[1]
-            plan.append(f"grid=({args[0].shape[0] // BLOCK_T},"
+            plan.append(f"grid=({args[0].shape[0] // bt},"
                         f"{-(-W.shape[-1] // cols)})")
     return " ".join(plan)
 
@@ -409,11 +431,15 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
             library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), flush)
         else:
-            n = args[0].shape[0] // BLOCK_T * BLOCK_T
+            bt = _block_t(kw)
+            n = args[0].shape[0] // bt * bt
             yk, yr = y[:n].float(), ref[:n].float()
-            byts, flops = _sgmv_work(kid, args, dest, item)
-            shape = (f"in={tuple(args[0].shape)} blocks={n // BLOCK_T} "
-                     f"live_rows={dest.shape[0]}")
+            byts, flops = _sgmv_work(kid, args, kw, dest, item)
+            shape = (f"in={tuple(args[0].shape)} block_t={bt} blocks="
+                     f"{n // bt} live_rows={dest.shape[0]}")
+            if kw.get("block_live") is not None and layout.endswith(
+                    "decode"):
+                shape += f" block_live={kw['block_live'].tolist()}"
             library_ms = None
         assert torch.isfinite(yk).all(), f"{kid}: non-finite output"
         err = (yk - yr).abs().max().item()
@@ -426,8 +452,9 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
         lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+        plan = _plan(kid, args, dtype, _block_t(kw))
         log(f"kernel {kid} {KERNELS[kid][0]} layout={layout} "
-            f"dtype={str(dtype)[6:]} {shape} {_plan(kid, args, dtype)} "
+            f"dtype={str(dtype)[6:]} {shape} {plan} "
             f"max_abs_err={err:.3e} "
             f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} "
             f"bound_ms={bound_ms:.5f} ({bound_by}: {byts} B, "
@@ -448,16 +475,17 @@ def _b1_splits_and_yardstick(calls, flush):
     lib = build.load_library()
     chosen = sgmv.shrink_split
     for layout in ("decode", "prefill"):
-        (x_pad, A, B, ba), _, _ = calls[("sgmv_fused_blocks", layout)]
+        (x_pad, A, B, ba), kw, _ = calls[("sgmv_fused_blocks", layout)]
         d = x_pad.shape[1]
         for split in (4, 8, 16):
             n = ctypes.c_int(-1)
-            err = lib.sgmv_cluster_occupancy(1, split, d, ctypes.byref(n))
+            err = lib.sgmv_cluster_occupancy(0, 1, split, BLOCK_T,
+                                             ctypes.byref(n))
             assert err == 0 and n.value > 0, (split, err, n.value)
             sgmv.shrink_split = lambda d, dtype, split=split: split
             try:
-                ms = _time_ms(lambda: sgmv.sgmv_fused_blocks(x_pad, A, B, ba),
-                              flush)
+                ms = _time_ms(lambda: sgmv.sgmv_fused_blocks(x_pad, A, B, ba,
+                                                             **kw), flush)
             finally:
                 sgmv.shrink_split = chosen
             log(f"split: B1 layout={layout} in={tuple(x_pad.shape)} C="
@@ -486,17 +514,70 @@ def _b3b_yardstick(layout, h, B, ba, flush):
         "gather and a library call, not one call)")
 
 
+def _b2_block_sizes(calls, flush):
+    """B2 in bf16 on phase 2's recorded prefill dispatcher call (the 2 x
+    1000-token group) laid out at block_t 16, 32 and 64 (the plan's pick
+    marked; the engine's own call ran at it): against its plain version,
+    timed, with the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters`` of B2's kernel at that block_t).
+    The tokens' outputs are equal bit for bit at every block_t."""
+    import ctypes
+    from repro_torch.kernels import build, ops, sgmv, tune
+    lib = build.load_library()
+    (x, banks, tok, bucket, local), _, _ = calls[("sgmv_bucketed_fused",
+                                                  "prefill")]
+    d, d_out = x.shape[1], banks[0][1].shape[-1]
+    picked = tune.block_plan(x.shape[0], d, d_out,
+                             tuple(A.shape[-1] for A, _ in banks),
+                             tuple(A.shape[0] for A, _ in banks))
+    ran = calls[("sgmv_multibank_blocks", "prefill")][1]["block_t"]
+    assert picked == ran == 64, (picked, ran)
+    split = sgmv.shrink_split(d, x.dtype)
+    outs = {}
+    for bt in (16, 32, 64):
+        dest, bb, br, x_pad = ops.bucketed_layout(x, tok, bucket, local,
+                                                  len(banks), bt)
+        kw = {"block_t": bt,
+              "block_live": ops.live_rows(dest, x_pad.shape[0], bt)}
+        y = sgmv.sgmv_multibank_blocks(x_pad, banks, bb, br, **kw)
+        ref = sgmv.sgmv_multibank_blocks_ref(x_pad, banks, bb, br, **kw)
+        torch.cuda.synchronize()
+        n = x_pad.shape[0] // bt * bt
+        err = (y[:n].float() - ref[:n].float()).abs().max().item()
+        tol = TOL[torch.bfloat16]
+        assert torch.allclose(y[:n].float(), ref[:n].float(), atol=tol,
+                              rtol=tol), (bt, err)
+        outs[bt] = y[dest.long()]
+        ms = _time_ms(lambda: sgmv.sgmv_multibank_blocks(x_pad, banks, bb,
+                                                         br, **kw), flush)
+        plain_ms = _time_ms(lambda: sgmv.sgmv_multibank_blocks_ref(
+            x_pad, banks, bb, br, **kw), flush)
+        occ = ctypes.c_int(-1)
+        assert lib.sgmv_cluster_occupancy(1, 1, split, bt,
+                                          ctypes.byref(occ)) == 0
+        assert occ.value > 0, (bt, occ.value)
+        log(f"plan: B2 layout=prefill block_t={bt}"
+            f"{' (the plan)' if bt == picked else ''} in="
+            f"{tuple(x_pad.shape)} blocks={n // bt} dtype=bfloat16 "
+            f"max_abs_err={err:.3e} tol={tol} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} occupancy={occ.value} clusters of "
+            f"{split}")
+    assert all(torch.equal(outs[16], o) for o in outs.values())
+    log("plan: B2's outputs at block_t 16, 32 and 64 equal bit for bit")
+
+
 def phase_kernels(dev, calls):
     """Each kernel wrapper and its plain version on the arguments of the
     main path's own calls (bf16, as the engine ran them, and the same
-    tensors cast to fp32); B1's split sweep and yardstick, B3b's
-    yardstick."""
+    tensors cast to fp32); B2 at block_t 16, 32 and 64 on the prefill
+    group; B1's split sweep and yardstick, B3b's yardstick."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     results = {}
     for kid, layout, args0, kw, dest in _kernel_cases(calls):
         _check_and_time(kid, layout, args0, kw, dest, flush, results)
         if kid == "B3b":
             _b3b_yardstick(layout, *args0, flush)
+    _b2_block_sizes(calls, flush)
     _b1_splits_and_yardstick(calls, flush)
     del flush
     return results
@@ -675,6 +756,47 @@ def _plain_bgmv(x, A, B, tok):
     return sgmv.sgmv_expand_blocks_ref(h, B, ba, block_t=1)[dest.long()]
 
 
+def _zero_padded(banks, bucket, local):
+    """Batch row a's adapter (bucket[a], row local[a]) of a rank-bucketed
+    bank set as row a of one bank zero-padded to the largest rank."""
+    max_r = max(A.shape[-1] for A, _ in banks)
+    A0, B0 = banks[0]
+    Na = bucket.shape[0]
+    Ap = A0.new_zeros((Na, A0.shape[1], max_r))
+    Bp = B0.new_zeros((Na, max_r, B0.shape[-1]))
+    for a, (b, row) in enumerate(zip(bucket.tolist(), local.tolist())):
+        A, B = banks[b]
+        Ap[a, :, :A.shape[-1]] = A[row]
+        Bp[a, :B.shape[1]] = B[row]
+    return Ap, Bp
+
+
+def _bucketed_identities(layout, args, kw):
+    """On one recorded bucketed dispatcher call, in bf16 and cast to fp32:
+    B2 at the plan's block_t (the call as the engine made it) == the host
+    loop ``sgmv_rank_bucketed`` (B3a/B3b) at 16 == B1 (``sgmv_fused``) on
+    the zero-padded bank, bit for bit."""
+    from repro_torch.kernels import ops, tune
+    for dtype in (torch.bfloat16, torch.float32):
+        x, bk, tok, bucket, local = _cast(args, dtype)
+        y_plan = ops.sgmv_bucketed_fused(x, bk, tok, bucket, local, **kw)
+        fixed = {**kw, "block_t": BLOCK_T}
+        y_host = ops.sgmv_rank_bucketed(x, bk, tok, bucket,
+                                        adapter_local=local, **fixed)
+        Ap, Bp = _zero_padded(bk, bucket, local)
+        y_pad = ops.sgmv_fused(x, Ap, Bp, tok, **fixed)
+        assert torch.isfinite(y_plan.float()).all()
+        assert torch.equal(y_plan, y_host), (layout, dtype, "host loop")
+        assert torch.equal(y_plan, y_pad), (layout, dtype, "padded B1")
+    bt = tune.block_plan(x.shape[0], x.shape[1], bk[0][1].shape[-1],
+                         tuple(A.shape[-1] for A, _ in bk),
+                         tuple(A.shape[0] for A, _ in bk))
+    log(f"unfused: the engine's bucketed {layout} call x="
+        f"{tuple(x.shape)}: B2 at the plan's block_t={bt} == host loop "
+        f"(B3a/B3b) at 16 == B1 on the zero-padded bank, bit for bit, "
+        "bf16 and fp32")
+
+
 def phase_unfused(dev, cfg, calls, banks):
     """The path through B3a/B3b, driven with their counts at 0 just before
     and read just after: the unfused dispatchers on the engine's own
@@ -692,10 +814,9 @@ def phase_unfused(dev, cfg, calls, banks):
             y_f = ops.sgmv_fused(*args, **kw)
             y_u = ops.sgmv(*args, **kw)
         elif name == "sgmv_bucketed_fused":
-            x, bk, tok, bucket, local = args
-            y_f = ops.sgmv_bucketed_fused(*args, **kw)
-            y_u = ops.sgmv_rank_bucketed(x, bk, tok, bucket,
-                                         adapter_local=local, **kw)
+            _bucketed_identities(layout, args, kw)
+            checked += 4
+            continue
         else:
             continue
         assert torch.equal(y_f, y_u), f"{name} {layout}: unfused differs"
@@ -971,7 +1092,7 @@ def phase_split(dev, cfg, tp_calls, b2_calls):
     B4a/B4b, which run on this path only, keep the ``decode`` and
     ``prefill`` layout names; B3a, B3b and B5, whose tp = 1 calls phase 3
     checked, are filed under ``tp2-...``."""
-    from repro_torch.kernels import sgmv
+    from repro_torch.kernels import ops, sgmv
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     results = {}
     d_local = cfg.d_model // TP
@@ -994,16 +1115,23 @@ def phase_split(dev, cfg, tp_calls, b2_calls):
                 _b3b_yardstick(label, *args, flush)
     del flush
     for layout in ("decode", "prefill"):
-        (x_pad, banks, bkt, row), _, _ = b2_calls[layout]
+        args, kw, _ = b2_calls[layout]
         for dtype in (torch.bfloat16, torch.float32):
-            x, bk = _cast((x_pad, banks), dtype)
-            n = x.shape[0] // BLOCK_T * BLOCK_T
-            h = sgmv.sgmv_multibank_shrink(x, [A for A, _ in bk], bkt, row)
+            x, bk, tok, bucket, local = _cast(args, dtype)
+            # B2 as the engine called it (the plan's block_t), B4a then
+            # B4b at 16 as the tensor-parallel path lays tokens out
+            y_b2 = ops.sgmv_bucketed_fused(x, bk, tok, bucket, local, **kw)
+            dest, bkt, row, x_pad = ops.bucketed_layout(
+                x, tok, bucket, local, len(bk), BLOCK_T)
+            h = sgmv.sgmv_multibank_shrink(
+                x_pad, [A for A, _ in bk], bkt, row,
+                block_live=ops.live_rows(dest, x_pad.shape[0], BLOCK_T))
             y = sgmv.sgmv_multibank_expand(h, [B for _, B in bk], bkt, row)
-            assert torch.equal(y[:n], sgmv.sgmv_multibank_blocks(
-                x, bk, bkt, row)[:n]), (layout, dtype)
-        log(f"split: B4a then B4b == B2 bit for bit on phase 2's {layout} "
-            f"B2 call x={tuple(x_pad.shape)}, bf16 and fp32")
+            y = y[dest.long()] * kw["scaling"]
+            assert torch.equal(y, y_b2), (layout, dtype)
+        log(f"split: B4a then B4b (block_t 16) == B2 (block_t "
+            f"{b2_calls[layout][2]}) bit for bit on phase 2's {layout} "
+            f"bucketed call x={tuple(args[0].shape)}, bf16 and fp32")
     return results
 
 
@@ -1036,8 +1164,10 @@ def main() -> int:
     t0 = time.monotonic()
     launches.update(phase_unfused(dev, cfg, calls, banks))
     log(f"phase unfused: {time.monotonic() - t0:.1f}s")
-    b2_calls = {layout: calls[("sgmv_multibank_blocks", layout)]
-                for layout in ("decode", "prefill")}
+    # the bucketed dispatcher's calls, with the block_t B2 ran them at
+    b2_calls = {layout: calls[("sgmv_bucketed_fused", layout)][:2] + (
+        calls[("sgmv_multibank_blocks", layout)][1]["block_t"],)
+        for layout in ("decode", "prefill")}
     del calls, banks
     torch.cuda.empty_cache()
     t0 = time.monotonic()

@@ -102,21 +102,22 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.sgmv_fused_blocks_launch.argtypes = [
-                i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+                i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             lib.sgmv_fused_blocks_launch.restype = i32
             lib.sgmv_multibank_blocks_launch.argtypes = [
                 i32, i32, vp, ctypes.POINTER(vp), ctypes.POINTER(vp),
-                ctypes.POINTER(i32), i32, vp, vp, vp, i32, i32, i32, i32, vp]
+                ctypes.POINTER(i32), i32, vp, vp, vp, vp, i32, i32, i32, i32,
+                vp]
             lib.sgmv_multibank_blocks_launch.restype = i32
             lib.sgmv_shrink_launch.argtypes = [
-                i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+                i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_shrink_launch.restype = i32
             lib.sgmv_expand_launch.argtypes = [
                 i32, vp, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_expand_launch.restype = i32
             lib.sgmv_multibank_shrink_launch.argtypes = [
                 i32, i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32,
-                vp, vp, vp, i32, i32, i32, i32, vp]
+                vp, vp, vp, vp, i32, i32, i32, i32, vp]
             lib.sgmv_multibank_shrink_launch.restype = i32
             lib.sgmv_multibank_expand_launch.argtypes = [
                 i32, vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp,
@@ -127,7 +128,7 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp]
             lib.flash_mha_launch.restype = i32
             lib.sgmv_cluster_occupancy.argtypes = [
-                i32, i32, i32, ctypes.POINTER(i32)]
+                i32, i32, i32, i32, ctypes.POINTER(i32)]
             lib.sgmv_cluster_occupancy.restype = i32
             _LIB = lib
         return _LIB

@@ -11,8 +11,11 @@ with no host sync (stable argsort, scatter-add counts, cumsum), so the
 engine's k-step decode keeps one sync per k tokens.
 
 ``segment_layout`` / ``bucketed_layout`` lay a token batch out for a
-padded / bucketed bank; the dispatchers here and the tensor-parallel
-forms in ``lora/batched.py`` share them.
+padded / bucketed bank, and ``live_rows`` counts each block's live rows
+(the shrink kernels skip the rest, and spare blocks altogether); the
+dispatchers here and the tensor-parallel forms in ``lora/batched.py``
+share them. ``sgmv_bucketed_fused`` takes its ``block_t`` from
+``tune.block_plan`` when given none, as the JAX package's does.
 
 ``sgmv`` (and ``bgmv``, its block_t = 1 decode form) computes the same
 delta on the unfused pair B3a/B3b, bit for bit equal to ``sgmv_fused``;
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from . import tune
 from .ref import sgmv_ref
 from .sgmv import (sgmv_expand, sgmv_fused_blocks, sgmv_multibank_blocks,
                    sgmv_shrink)
@@ -92,6 +96,17 @@ def padded_len(T: int, n_adapters: int, block_t: int) -> int:
     return T + n_adapters * block_t
 
 
+def live_rows(dest, T_pad: int, block_t: int):
+    """(T_pad // block_t,) int32: the tokens each whole block holds, a
+    scatter-add of ones at ``dest // block_t`` on the device (no host
+    sync). A block's tokens fill it from its first row, so the count
+    bounds its live rows; spare blocks count 0."""
+    blk = dest.long() // block_t
+    return torch.zeros(T_pad // block_t, dtype=torch.int32,
+                       device=dest.device).scatter_add_(
+        0, blk, torch.ones_like(blk, dtype=torch.int32))
+
+
 def scatter_rows(x, dest, T_pad):
     """(T, d) rows -> the zero-padded (T_pad, d) segment-blocked layout."""
     x_pad = x.new_zeros((T_pad, x.shape[1]))
@@ -132,7 +147,8 @@ def sgmv(x, A, B, token_adapter, *, scaling: float = 1.0,
     bit for bit ``sgmv_fused``'s."""
     dest, block_adapter, x_pad = segment_layout(x, token_adapter,
                                                 A.shape[0], block_t)
-    h = sgmv_shrink(x_pad, A, block_adapter, block_t=block_t)
+    h = sgmv_shrink(x_pad, A, block_adapter, block_t=block_t,
+                    block_live=live_rows(dest, x_pad.shape[0], block_t))
     y_pad = sgmv_expand(h, B, block_adapter, block_t=block_t)
     return y_pad[dest.long()] * scaling
 
@@ -182,26 +198,36 @@ def sgmv_fused(x, A, B, token_adapter, *, scaling: float = 1.0,
     (T, d_out)."""
     dest, block_adapter, x_pad = segment_layout(x, token_adapter,
                                                 A.shape[0], block_t)
-    y_pad = sgmv_fused_blocks(x_pad, A, B, block_adapter, block_t=block_t)
+    y_pad = sgmv_fused_blocks(x_pad, A, B, block_adapter, block_t=block_t,
+                              block_live=live_rows(dest, x_pad.shape[0],
+                                                   block_t))
     return y_pad[dest.long()] * scaling
 
 
 def sgmv_bucketed_fused(x, banks, token_adapter, adapter_bucket,
                         adapter_local=None, *, scaling: float = 1.0,
-                        block_t: int = 16):
+                        block_t=None):
     """Rank-bucketed LoRA delta in one launch of kernel B2.
 
     banks: sequence of (A_b (Na_b, d, r_b), B_b (Na_b, r_b, d_out)) in
     ascending bucket order; adapter_bucket: (Na,) adapter -> bucket;
     adapter_local: (Na,) adapter -> row of its bucket's bank (None: every
-    bucket bank is indexed by the global id). ``block_t`` is fixed (16 by
-    default); the JAX package's residency plan is a TPU VMEM plan and
+    bucket bank is indexed by the global id). ``block_t=None`` takes the
+    block size from ``tune.block_plan`` on the bank signature (the same as
+    the JAX package's plan, from shapes alone: no host sync); an explicit
+    value pins it. The JAX plan's bank residency is a TPU VMEM plan that
     changes no number, so it has no counterpart here."""
     banks = tuple((A, B) for A, B in banks)
+    if block_t is None:
+        block_t = tune.block_plan(
+            x.shape[0], x.shape[1], banks[0][1].shape[-1],
+            tuple(A.shape[-1] for A, _ in banks),
+            tuple(A.shape[0] for A, _ in banks))
     dest, block_bucket, block_row, x_pad = bucketed_layout(
         x, token_adapter, adapter_bucket, adapter_local, len(banks), block_t)
-    y_pad = sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row,
-                                  block_t=block_t)
+    y_pad = sgmv_multibank_blocks(
+        x_pad, banks, block_bucket, block_row, block_t=block_t,
+        block_live=live_rows(dest, x_pad.shape[0], block_t))
     return y_pad[dest.long()] * scaling
 
 

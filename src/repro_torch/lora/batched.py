@@ -35,7 +35,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import (bucketed_layout, segment_layout, sgmv,
+from repro_torch.kernels.ops import (bucketed_layout, live_rows,
+                                     segment_layout, sgmv,
                                      sgmv_bucketed_fused, sgmv_fused,
                                      sgmv_rank_bucketed)
 from repro_torch.kernels.sgmv import (sgmv_expand, sgmv_multibank_expand,
@@ -98,8 +99,9 @@ def _lora_delta_sgmv(x, target, idx, scaling, block_t, tp):
     else:
         dest, block_adapter, x_pad = segment_layout(
             _local_x(x2, A, tp), tok, A.shape[0], bt)
-        h = all_reduce_(sgmv_shrink(x_pad, A, block_adapter, block_t=bt),
-                        tp)
+        h = all_reduce_(sgmv_shrink(
+            x_pad, A, block_adapter, block_t=bt,
+            block_live=live_rows(dest, x_pad.shape[0], bt)), tp)
         y = sgmv_expand(h, B, block_adapter, block_t=bt)[dest.long()] \
             * scaling
     return tokens_to_rows(y, B_, S_)
@@ -110,25 +112,28 @@ def _lora_delta_sgmv_bucketed(x, bucket_targets, idx, scaling, block_t,
     """Bucketed kernel form: every batch row is its own "adapter"
     (adapter_bucket/adapter_local taken straight from the (Bt, 2) idx), so
     the whole heterogeneous delta is ONE ``sgmv_bucketed_fused`` launch
-    (B2) with each row's tokens at its own bucket's rank. At tp > 1: B4a
+    (B2) with each row's tokens at its own bucket's rank, at the block
+    size of ``kernels.tune.block_plan`` when ``block_t`` is None. At tp >
+    1 (block_t 16 unless given, as the JAX package's coshard branch): B4a
     on the rank's d slice of every bucket's A, one all-reduce of the
     (T_pad, max_r) h, B4b on its d_out columns of every B."""
     x2, (B_, S_) = rows_to_tokens(x)
     tok = torch.arange(B_, dtype=torch.int32,
                        device=x.device).repeat_interleave(S_)
-    bt = 16 if block_t is None else block_t
     A_banks = [t["A"].to(x.dtype) for t in bucket_targets]
     B_banks = [t["B"].to(x.dtype) for t in bucket_targets]
     if tp_size(tp) == 1:
         y = sgmv_bucketed_fused(x2, tuple(zip(A_banks, B_banks)), tok,
                                 idx[:, 0], idx[:, 1], scaling=scaling,
-                                block_t=bt)
+                                block_t=block_t)
     else:
+        bt = 16 if block_t is None else block_t
         dest, block_bucket, block_row, x_pad = bucketed_layout(
             _local_x(x2, A_banks[0], tp), tok, idx[:, 0], idx[:, 1],
             len(A_banks), bt)
-        h = all_reduce_(sgmv_multibank_shrink(x_pad, A_banks, block_bucket,
-                                              block_row, block_t=bt), tp)
+        h = all_reduce_(sgmv_multibank_shrink(
+            x_pad, A_banks, block_bucket, block_row, block_t=bt,
+            block_live=live_rows(dest, x_pad.shape[0], bt)), tp)
         y = sgmv_multibank_expand(h, B_banks, block_bucket, block_row,
                                   block_t=bt)[dest.long()] * scaling
     return tokens_to_rows(y, B_, S_)
@@ -143,7 +148,8 @@ def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
     such dicts (one per rank bucket) for a bucketed bank; ``idx`` is the
     matching ``LoRABank.lora_idx`` output. ``kernel`` selects "einsum"
     (gather-einsum) or "sgmv" (the hand-written kernels; their plain
-    versions on CPU tensors). ``block_t=None`` means 16. ``tp``: this
+    versions on CPU tensors). ``block_t=None`` means the bucketed path's
+    ``kernels.tune.block_plan`` at tp = 1, else 16. ``tp``: this
     rank's ``TensorParallel`` when ``bank_layer`` is its co-sharded slice
     (see the module docstring)."""
     if bank_layer is None:
@@ -178,7 +184,9 @@ def apply_bank_sgmv(x, bank, name: str, layer: int, token_adapter, *,
                     scaling: float = 1.0, block_t=None, fused: bool = True):
     """Kernel path for token-major layouts: x: (T, d) tokens,
     token_adapter: (T,) *global* adapter rows of ``bank`` (a LoRABank);
-    the delta of target ``name`` at ``layer``. ``block_t=None`` means 16.
+    the delta of target ``name`` at ``layer``. ``block_t=None`` means the
+    plan of ``kernels.tune.block_plan`` for the fused bucketed path, as in
+    the JAX package, and 16 elsewhere.
 
     Padded banks run ``sgmv_fused`` (kernel B1) over the whole token set
     at the bank's max rank; bucketed banks run ``sgmv_bucketed_fused``
@@ -198,7 +206,7 @@ def apply_bank_sgmv(x, bank, name: str, layer: int, token_adapter, *,
     if fused:
         return sgmv_bucketed_fused(x, banks, token_adapter,
                                    bank.adapter_bucket, bank.adapter_local,
-                                   scaling=scaling, block_t=bt)
+                                   scaling=scaling, block_t=block_t)
     return sgmv_rank_bucketed(x, banks, token_adapter, bank.adapter_bucket,
                               adapter_local=bank.adapter_local,
                               scaling=scaling, block_t=bt)

@@ -170,6 +170,37 @@ def test_free_slot_past_max_len_matches_jax(setup, jax_past_cache,
     assert int(eng.cache["pos"].max()) > 16     # the trap was exercised
 
 
+@pytest.fixture(scope="module")
+def jax_long_group(setup):
+    # two 400-token prompts prefill as one group of 800 tokens: the
+    # bucketed path's plan (kernels.tune.block_plan) picks block_t 64
+    # there, 16 at decode
+    rng = np.random.default_rng(5)
+    trace = [(aid, [int(t) for t in rng.integers(1, 512, 400)], 5)
+             for aid in ("a-r8", "b-r64")]
+    return trace, _run(setup, trace, jax_side=True, max_len=408)
+
+
+@pytest.mark.parametrize("decode_block", [1, 4])
+def test_long_prefill_group_at_the_plan_matches_jax(setup, jax_long_group,
+                                                    decode_block,
+                                                    monkeypatch):
+    from repro_torch.kernels import ops as tops
+    trace, (want, _) = jax_long_group
+    real, block_ts = tops.sgmv_multibank_blocks, []
+
+    def recorded(*args, **kw):
+        block_ts.append(kw["block_t"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tops, "sgmv_multibank_blocks", recorded)
+    out, _ = _run(setup, trace, jax_side=False, max_len=408,
+                  bank_mode="bucketed", lora_kernel="sgmv",
+                  decode_block=decode_block)
+    assert out == want
+    assert max(block_ts) == 64 and min(block_ts) == 16
+
+
 def test_engine_matches_direct_decode(setup):
     """Mirror of test_engine.py: the engine's tokens equal prefill + a
     hand-driven decode loop on the same bank."""
