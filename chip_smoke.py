@@ -86,11 +86,32 @@ Phases (any failure raises; the script then exits non-zero):
                then B4b (block_t 16) equal to B2 (the plan's block_t)
                bit for bit on phase 2's recorded bucketed calls (tp = 1
                shapes).
+  8. cluster — runs right after phase 2's main path, on its bf16
+               params: ``LoRAServeCluster`` over 2 engines that share
+               them (``launch.serve.make_cluster``), the launcher's 8
+               adapters (ranks 8..128, phase 2's weight seed), 16
+               requests of drifting popularity over 3 s, prompts 64 and
+               128, 16 new tokens, max batch 8, decode_block 4,
+               rebalances every 1 s. (a) On a virtual clock
+               (``launch.serve.drive``, a poll every 0.25 s), padded then
+               bucketed: at least one rebalance that changed the
+               placement, equal routing, placements and tokens in both
+               modes, each bank's max rank that of its hosted subset,
+               B1/B2 launched 4 x 32 times and B5 32 times per model pass
+               and prefill group over all engines, peak memory under
+               twice the weights' bytes; (b) remote reads (>= 1, tokens
+               of (a)); (c) a wall-clock ``run``: TTFT, TBT per server,
+               decode tokens/s, bank rebuilds and their ms, peak memory,
+               beside nvidia-smi's line; (d) phase 5's fp32 2-layer model,
+               server 0 killed at 1.0 s: one failure, one recovery,
+               every request complete with the fault-free run's tokens.
+               The kernels line keeps phase 2's launch counts.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
 """
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -666,6 +687,13 @@ def phase_engine(dev):
         del eng
     assert tp_ref["padded"][0] == tp_ref["bucketed"][0]
     assert torch.equal(tp_ref["padded"][1], tp_ref["bucketed"][1])
+    return cfg, launches, rec.calls, banks, tp_ref, params, einsum
+
+
+def _noise_floor(cfg, params, dev, tp_ref, einsum):
+    """The end of phase 2: the bf16 noise floor of phase 6's first prefill
+    at tp = 1, against the einsum LoRA form and against fp32 on the same
+    weights (``params`` is upcast in place, then freed)."""
     ref = tp_ref["padded"][1]
     tp_ref["fp32"] = _fp32_first_logits(cfg, params, dev)  # params -> fp32
     scale = ref.abs().max().item()
@@ -677,9 +705,6 @@ def phase_engine(dev):
             f"({err / scale:.3%})")
     log("engine: phase 6's trace served at tp = 1 (its reference); padded "
         "and bucketed tokens and logits equal bit for bit")
-    del params
-    torch.cuda.empty_cache()
-    return cfg, launches, rec.calls, banks, tp_ref
 
 
 def _tp_trace(cfg):
@@ -1135,6 +1160,182 @@ def phase_split(dev, cfg, tp_calls, b2_calls):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the cluster facade
+# ---------------------------------------------------------------------------
+CLUSTER = dict(n_requests=16, prompt_lens=(64, 128), max_new=16,
+               duration=3.0, dt=0.25, rebalance_period=1.0, max_batch=8,
+               decode_block=4)
+
+
+def _cluster_run(cfg, params, weights, mode, *, kill=None, wall=False,
+                 **kw):
+    """Phase 8's setup with a ``mode`` bank, driven on the virtual clock
+    (or replayed on the wall clock with ``wall``): 2 servers over
+    ``params``, the launcher's 8 adapters, 16 requests of drifting
+    popularity over 3 s, prompts of 64 and 128 tokens, 16 new tokens each.
+    ``kill`` = (time, server) adds ``FaultPlan.kill_one``. Every kernel
+    count is 0 just before the drive. Returns (cluster, report, trace,
+    launch counts)."""
+    from repro_torch.faults import FaultPlan
+    from repro_torch.launch.serve import (build_cluster_trace,
+                                          cluster_adapters, drive,
+                                          make_cluster)
+    c = CLUSTER
+    adapters = cluster_adapters(8)
+    cluster = make_cluster(
+        cfg, params, adapters, weights, 2,
+        max_len=max(c["prompt_lens"]) + c["max_new"] + 8,
+        max_batch=c["max_batch"], bank_mode=mode,
+        decode_block=c["decode_block"],
+        rebalance_period=c["rebalance_period"],
+        fault_plan=None if kill is None else FaultPlan.kill_one(*kill),
+        device=params.embed.device, **kw)
+    trace = build_cluster_trace(adapters, cfg, c["n_requests"],
+                                c["prompt_lens"], c["max_new"],
+                                c["duration"], seed=0)
+    wrappers = _wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    report = cluster.run(trace) if wall else drive(cluster, trace, c["dt"])
+    torch.cuda.synchronize()
+    launches = {kid: k.launches for kid, k in wrappers.items()}
+    assert report.completed() == len(trace), report.completed()
+    assert all(len(r.output) == c["max_new"] for r in trace), \
+        [len(r.output) for r in trace]
+    assert all(0 <= t < cfg.vocab_size for r in trace for t in r.output)
+    return cluster, report, trace, launches
+
+
+def _cluster_launches(cfg, cluster, mode, launches):
+    """The mode's SGMV kernel launched 4 x 32 times a model pass and B5
+    32 times a prefill group, over all engines together; nothing else.
+    Returns (model passes, prefill groups)."""
+    engines = [e for e in cluster.backend.engines if e is not None]
+    passes = sum(e.prefill_dispatches + e.decode_iterations for e in engines)
+    groups = sum(e.prefill_dispatches for e in engines)
+    want = {kid: 0 for kid in KERNELS}
+    want[{"padded": "B1", "bucketed": "B2"}[mode]] = (
+        len(cfg.lora.targets) * cfg.n_layers * passes)
+    want["B5"] = cfg.n_layers * groups
+    assert launches == want, (launches, want)
+    return passes, groups
+
+
+def _tokens(trace):
+    return {r.req_id: list(r.output) for r in trace}
+
+
+def _free():
+    """Free a dropped cluster's engines now: each engine's clock is a
+    method of its backend, a reference cycle that only the collector
+    breaks, and their banks and caches hold gigabytes of the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_cluster(dev, cfg, params, smi):
+    """Phase 8 on phase 2's bf16 ``params`` (and phase 5's fp32 2-layer
+    model for the kill)."""
+    from repro_torch.launch.serve import (adapter_weights, cluster_adapters,
+                                          cluster_summary, warm_up)
+    ranks = {a.adapter_id: a.rank for a in cluster_adapters(8)}
+    weights = adapter_weights(cfg, ranks, dtype=torch.bfloat16, device=dev,
+                              seed=3)
+    par_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    warm_up(cfg, params, weights, bank_mode="bucketed", decode_block=4,
+            device=dev)
+    _free()
+    # (a) the virtual-clock drive in both bank modes
+    runs = {}
+    for mode in ("padded", "bucketed"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        cluster, rep, trace, launches = _cluster_run(cfg, params, weights,
+                                                     mode)
+        peak = torch.cuda.max_memory_allocated(dev)
+        passes, groups = _cluster_launches(cfg, cluster, mode, launches)
+        assert rep.rebalances >= 1 and rep.placement_changed(), \
+            (rep.rebalances, rep.placements)
+        be = cluster.backend
+        for sid, mem in enumerate(rep.memory_profile):
+            hosted = be.hosted_adapters(sid)
+            assert mem["max_rank"] == max(hosted.values()), (sid, mem, hosted)
+        # one copy of the base weights: the engines share ``params``
+        assert all(e.params is params for e in be.engines if e is not None)
+        assert peak < 2 * par_bytes, (peak, par_bytes)
+        runs[mode] = (cluster.routed, rep.placements, _tokens(trace))
+        log(f"cluster (a) mode={mode} virtual clock dt={CLUSTER['dt']}s: "
+            f"finished={rep.completed()}/{len(trace)} rebalances="
+            f"{rep.rebalances} placements={len(rep.placements)} "
+            f"per_server={rep.per_server_counts} max_rank="
+            f"{[m['max_rank'] for m in rep.memory_profile]} hosted="
+            f"{[sorted(be.hosted_adapters(s)) for s in range(2)]} "
+            f"model_passes={passes} prefill_groups={groups} launches="
+            f"{ {k: v for k, v in launches.items() if v} } bank_builds="
+            f"{be.bank_builds} bank_rebuilds={be.bank_rebuilds} bank_ms="
+            f"{[round(x, 1) for x in be.bank_ms]} peak_gb={peak / 1e9:.2f} "
+            f"(params {par_bytes / 1e9:.2f})")
+        del cluster, be
+        _free()
+    assert runs["padded"][0] == runs["bucketed"][0], "routing differs"
+    assert runs["padded"][1] == runs["bucketed"][1], "placements differ"
+    assert runs["padded"][2] == runs["bucketed"][2], "tokens differ"
+    log("cluster (a): padded and bucketed route, place and emit the same "
+        "tokens bit for bit")
+    # (b) remote reads
+    cluster, rep, trace, launches = _cluster_run(
+        cfg, params, weights, "bucketed", access_mode="remote-read")
+    _cluster_launches(cfg, cluster, "bucketed", launches)
+    assert rep.remote_reads >= 1, rep.remote_reads
+    assert _tokens(trace) == runs["bucketed"][2], "remote-read tokens differ"
+    log(f"cluster (b) access_mode=remote-read: remote_reads="
+        f"{rep.remote_reads} rebalances={rep.rebalances} launches="
+        f"{ {k: v for k, v in launches.items() if v} }; tokens equal (a)'s")
+    del cluster
+    _free()
+    # (c) the wall clock
+    torch.cuda.reset_peak_memory_stats(dev)
+    cluster, rep, trace, launches = _cluster_run(cfg, params, weights,
+                                                 "bucketed", wall=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _cluster_launches(cfg, cluster, "bucketed", launches)
+    extra = cluster_summary(cluster, rep, trace)
+    s = rep.summary
+    per_tbt = {k: round(v * 1e3, 3)
+               for k, v in extra["server_mean_tbt"].items()}
+    log(f"cluster (c) wall clock, bucketed, 2 servers stepping in turn on "
+        f"one card | {smi}: p50_ttft_ms={s['p50_ttft'] * 1e3:.2f} "
+        f"p95_ttft_ms={s['p95_ttft'] * 1e3:.2f} "
+        f"mean_tbt_ms={s['mean_tbt'] * 1e3:.3f} server_mean_tbt_ms="
+        f"{per_tbt} decode_tok_s={extra['decode_tok_s']:.1f} "
+        f"per_server={rep.per_server_counts} bank_max_rank="
+        f"{[m['max_rank'] for m in rep.memory_profile]} rebalances="
+        f"{rep.rebalances} bank_builds={extra['bank_builds']} "
+        f"bank_rebuilds={extra['bank_rebuilds']} bank_ms="
+        f"{[round(x, 1) for x in extra['bank_ms']]} launches="
+        f"{ {k: v for k, v in launches.items() if v} } "
+        f"peak_gb={peak / 1e9:.2f}")
+    del cluster
+    _free()
+    # (d) kill a server: phase 5's fp32 2-layer model
+    cfg2, params2, _, _ = _parity_setup(dev)
+    weights2 = adapter_weights(cfg2, ranks, dtype=torch.float32, device=dev,
+                               seed=4)
+    _, _, ref, _ = _cluster_run(cfg2, params2, weights2, "bucketed")
+    _, rep, trace, _ = _cluster_run(cfg2, params2, weights2, "bucketed",
+                                    kill=(1.0, 0))
+    assert rep.server_failures == 1 and rep.recoveries == 1, \
+        (rep.server_failures, rep.recoveries)
+    assert rep.redispatched >= 1, rep.redispatched
+    assert _tokens(trace) == _tokens(ref), "tokens differ after the kill"
+    log(f"cluster (d) fp32 2 layers, server 0 killed at 1.0 s: failures="
+        f"{rep.server_failures} recoveries={rep.recoveries} redispatched="
+        f"{rep.redispatched} finished={rep.completed()}/{len(trace)}; "
+        f"tokens equal the fault-free run's")
+    del params2
+    _free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1156,8 +1357,14 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f}s")
 
     t0 = time.monotonic()
-    cfg, launches, calls, banks, tp_ref = phase_engine(dev)
+    cfg, launches, calls, banks, tp_ref, params, einsum = phase_engine(dev)
     log(f"phase engine: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    phase_cluster(dev, cfg, params, smi)
+    log(f"phase cluster: {time.monotonic() - t0:.1f}s")
+    _noise_floor(cfg, params, dev, tp_ref, einsum)
+    del params
+    torch.cuda.empty_cache()
     t0 = time.monotonic()
     kres = phase_kernels(dev, calls)
     log(f"phase kernels: {time.monotonic() - t0:.1f}s")

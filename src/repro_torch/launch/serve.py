@@ -20,6 +20,17 @@ ranks on one card). Every rank serves the same trace; rank 0 prints the
 report. Example, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
       --device cpu --mesh 1,2 --backend gloo
+
+``--servers N`` serves through the cluster facade instead, as the JAX
+package's launcher does: ``LoRAServeCluster`` over an ``EngineBackend`` of
+N placement-aware engines that share one copy of the base weights, each
+bank holding only its placed adapter subset. The facade runs placement,
+phi-routing, the adapter store and demand estimation, and rebalances
+while requests are in flight: arrivals spread over ``--duration`` wall
+seconds with drifting popularity (low ranks early, high ranks late). The
+engines step in turn on one device. Example, on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
+      --device cpu --servers 2 --requests 12 --duration 2
 """
 from __future__ import annotations
 
@@ -27,14 +38,18 @@ import argparse
 import random
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import torch
 
+from repro_torch.cluster import NetworkModel
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import POLICIES, AdapterInfo, ServeRequest
 from repro_torch.launch.mesh import make_engine_mesh, spawn
 from repro_torch.models import model as M
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import (EngineBackend, LoRAServeCluster, Request,
+                                 ServingEngine)
 
 RANKS = (8, 16, 32, 64, 128)
 
@@ -189,6 +204,284 @@ def _serve_rank(rank: int, dp: int, tp: int, args) -> None:
           f"decode_calls={eng.decode_dispatches}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the cluster facade (--servers N)
+# ---------------------------------------------------------------------------
+
+
+def cluster_adapters(n: int):
+    """``n`` adapters ``ad{i}-r{rank}``, ranks {8, ..., 128} in turn, of
+    rank x 2 MB each (the JAX package's launcher's)."""
+    return [AdapterInfo(f"ad{i}-r{RANKS[i % 5]}", RANKS[i % 5],
+                        nbytes=RANKS[i % 5] * 2_000_000) for i in range(n)]
+
+
+def build_cluster_trace(adapters, cfg, n_requests: int, prompt_lens,
+                        max_new: int, duration: float, seed: int):
+    """The JAX package's ``launch/serve.py:build_trace``: arrivals spread
+    over ``duration`` seconds with drifting popularity (early traffic
+    favors low-rank adapters, late traffic high-rank: the workload shift
+    that makes the dynamic policy re-place). Prompt lengths take
+    ``prompt_lens`` in turn; with one length the trace is the JAX
+    package's, draw for draw."""
+    rng = random.Random(seed)
+    by_rank = sorted(adapters, key=lambda a: a.rank)
+    trace = []
+    for i in range(n_requests):
+        progress = i / max(1, n_requests - 1)
+        w = [(1.0 - progress) * (len(by_rank) - j) + progress * (j + 1)
+             for j in range(len(by_rank))]
+        a = rng.choices(by_rank, weights=w)[0]
+        plen = prompt_lens[i % len(prompt_lens)]
+        prompt = [rng.randrange(1, cfg.vocab_size) for _ in range(plen)]
+        trace.append(ServeRequest(
+            req_id=i, adapter_id=a.adapter_id, rank=a.rank,
+            prompt_len=plen, output_len=max_new, prompt=prompt,
+            arrival=i * duration / max(1, n_requests)))
+    return trace
+
+
+class SeededWeightsBackend(EngineBackend):
+    """An ``EngineBackend`` whose engines serve the given nonzero adapter
+    ``weights`` ({adapter: {target: {"A", "B"}}}, full width). A bank the
+    engine builds has B = 0, so every delta would be 0; after each call
+    that builds an engine or rebuilds its bank, the weights of every hosted
+    adapter go in again (an adapter just read from a peer keeps the peer's
+    bytes). ``bank_ms`` holds the milliseconds of each such call, build or
+    rebuild and installs, ended by a device sync; ``bank_builds`` and
+    ``bank_rebuilds`` count them."""
+
+    def __init__(self, *args, weights, **kw):
+        self.weights = weights
+        self.bank_ms = []
+        self.bank_builds = 0
+        self.bank_rebuilds = 0
+        # engine -> its bank_rebuilds when the weights last went in (weak:
+        # a failed or retired engine's bank and cache must be freed)
+        self._installed = weakref.WeakKeyDictionary()
+        super().__init__(*args, **kw)
+
+    def _reinstall(self, server_id, t0, remote=None):
+        """Install the weights again if the engine of ``server_id`` was
+        built or its bank rebuilt since they last went in; keep
+        ``remote``'s rows when they were read from a peer."""
+        eng = self.engines[server_id]
+        if eng is None:
+            return
+        old = self._installed.get(eng)
+        if old == eng.bank_rebuilds:
+            return
+        for aid, rank in eng.adapter_ranks.items():
+            if aid != remote or aid not in self._remote[server_id]:
+                eng.install_adapter(aid, rank, self.weights[aid])
+        self._installed[eng] = eng.bank_rebuilds
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.bank_ms.append((time.perf_counter() - t0) * 1e3)
+        if old is None:
+            self.bank_builds += 1
+        else:
+            self.bank_rebuilds += 1
+
+    def load_adapters(self, server_id, adapter_ranks):
+        t0 = time.perf_counter()
+        super().load_adapters(server_id, adapter_ranks)
+        self._reinstall(server_id, t0)
+
+    def load_adapter_remote(self, server_id, adapter_id, rank, peer_server):
+        t0 = time.perf_counter()
+        super().load_adapter_remote(server_id, adapter_id, rank, peer_server)
+        self._reinstall(server_id, t0, remote=adapter_id)
+
+    def evict_adapter(self, server_id, adapter_id):
+        t0 = time.perf_counter()
+        evicted = super().evict_adapter(server_id, adapter_id)
+        self._reinstall(server_id, t0)
+        return evicted
+
+
+def make_cluster(cfg, params, adapters, weights, n_servers: int, *,
+                 max_len: int, max_batch: int = 8, seed: int = 0,
+                 bank_mode: str = "padded", decode_block: int = 1,
+                 lora_kernel: str = "sgmv", policy: str = "loraserve",
+                 rebalance_period: float = 1.5, access_mode: str = "migrate",
+                 prefetch: bool = False, controller=None, fault_plan=None,
+                 detector_window: float = 0.5, mesh_shape=None,
+                 device="cuda"):
+    """``LoRAServeCluster`` over a ``SeededWeightsBackend`` of ``n_servers``
+    engines that share ``params``, set up as the JAX package's launcher
+    sets up its cluster. Building it places the adapters and builds the
+    engines."""
+    backend = SeededWeightsBackend(
+        cfg, params, n_servers, weights=weights, max_batch=max_batch,
+        max_len=max_len, seed=seed, bank_mode=bank_mode,
+        decode_block=decode_block, lora_kernel=lora_kernel,
+        mesh_shape=mesh_shape, device=device)
+    return LoRAServeCluster(
+        backend, adapters, policy=policy, network=NetworkModel(),
+        rebalance_period=rebalance_period, seed=seed,
+        access_mode=access_mode, prefetch=prefetch, controller=controller,
+        fault_plan=fault_plan, detector_window=detector_window,
+        durable_ssd=fault_plan is not None)
+
+
+def drive(cluster, trace, dt: float, max_polls: int = 100_000):
+    """Serve ``trace`` on a virtual clock: each request is submitted at the
+    first poll at or after its arrival, and ``poll(now)`` runs every ``dt``
+    virtual seconds until the cluster is idle. Routing, rebalances, fault
+    times and tokens then depend on ``now`` alone, not on the wall clock
+    (which still stamps TTFT and TBT). Works on any ``LoRAServeCluster``.
+    Returns the report."""
+    trace = sorted(trace, key=lambda r: r.arrival)
+    i = 0
+    for k in range(max_polls):
+        now = k * dt
+        while i < len(trace) and trace[i].arrival <= now + 1e-12:
+            cluster.submit(trace[i], now)
+            i += 1
+        cluster.poll(now)
+        if i == len(trace) and cluster.idle():
+            return cluster.report()
+    raise RuntimeError(f"cluster not idle after {max_polls} polls")
+
+
+def warm_up(cfg, params, weights, *, bank_mode, decode_block, device):
+    """Build the kernels and run each once (one short request through a
+    throwaway engine) so that no request of a timed run pays the nvcc
+    build or a first launch."""
+    aid = min(weights, key=lambda a: int(a.rsplit("-r", 1)[1]))
+    serve(cfg, params, [(aid, [1, 2, 3, 4], 2)],
+          weights={aid: weights[aid]}, bank_mode=bank_mode,
+          decode_block=decode_block, max_batch=1, device=device)
+
+
+def cluster_summary(cluster, report, trace) -> dict:
+    """What a cluster run adds to its report: decode tokens/s over the run
+    (tokens after each request's first, between the first first token and
+    the last finish, wall clock), each server's mean TBT, and the bank
+    builds and rebuilds with their milliseconds."""
+    reqs = [r for r in trace
+            if r.t_first_token is not None and r.t_finish is not None]
+    toks = sum(len(r.output) - 1 for r in reqs)
+    span = (max(r.t_finish for r in reqs)
+            - min(r.t_first_token for r in reqs)) if reqs else 0.0
+    tbt = {}
+    for r in report.results:
+        if r.finished and r.tbt:
+            tbt.setdefault(r.server, []).append(r.tbt)
+    be = cluster.backend
+    return {"decode_tok_s": toks / span if span > 0 else float("nan"),
+            "server_mean_tbt": {s: sum(v) / len(v)
+                                for s, v in sorted(tbt.items())},
+            "bank_builds": be.bank_builds,
+            "bank_rebuilds": be.bank_rebuilds,
+            "bank_ms": list(be.bank_ms)}
+
+
+def _serve_cluster(args) -> None:
+    """The ``--servers N`` path: the JAX package's launcher on the port."""
+    device = torch.device(args.device)
+    cfg = (get_config if args.config == "full" else get_smoke_config)(
+        "llama-7b-paper")
+    dtype = getattr(torch, args.dtype)
+    params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
+    adapters = cluster_adapters(args.adapters)
+    weights = adapter_weights(cfg, {a.adapter_id: a.rank for a in adapters},
+                              dtype=dtype, device=device, seed=args.seed)
+    prompt_lens = [int(v) for v in args.prompt_lens.split(",")]
+    controller = None
+    if args.controller:
+        from repro_torch.controlplane import (ClusterController,
+                                              ControllerConfig, SLOSpec)
+        controller = ClusterController(
+            SLOSpec(ttft=args.slo_ttft, target=args.slo_target,
+                    window=max(4 * args.tick_period, 2.0)),
+            ControllerConfig(tick_period=args.tick_period,
+                             min_servers=args.min_servers,
+                             max_servers=args.max_servers))
+    fault_plan = None
+    if args.fault_plan:
+        from repro_torch.faults import FaultPlan
+        fault_plan = FaultPlan.load(args.fault_plan)
+    elif args.chaos is not None:
+        from repro_torch.faults import FaultPlan
+        fault_plan = FaultPlan.random_plan(
+            args.chaos, horizon=args.duration, n_servers=args.servers)
+    dp, tp = (int(v) for v in args.mesh.split(","))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        warm_up(cfg, params, weights, bank_mode=args.bank_mode,
+                decode_block=args.decode_block, device=device)
+    cluster = make_cluster(
+        cfg, params, adapters, weights, args.servers,
+        max_len=max(prompt_lens) + args.max_new + 8,
+        max_batch=args.max_batch, seed=args.seed, bank_mode=args.bank_mode,
+        decode_block=args.decode_block, lora_kernel=args.lora_kernel,
+        policy=args.policy, rebalance_period=args.rebalance_period,
+        access_mode=args.access_mode, prefetch=args.prefetch,
+        controller=controller, fault_plan=fault_plan,
+        detector_window=args.detector_window,
+        mesh_shape=None if (dp, tp) == (1, 1) else (dp, tp), device=device)
+    trace = build_cluster_trace(adapters, cfg, args.requests, prompt_lens,
+                                args.max_new, args.duration, args.seed)
+    report = (profiled(lambda: cluster.run(trace), device) if args.profile
+              else cluster.run(trace))
+    extra = cluster_summary(cluster, report, trace)
+
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"model={cfg.name} layers={cfg.n_layers} dtype={args.dtype} "
+          f"device={where} servers={args.servers} "
+          f"lora_kernel={args.lora_kernel} "
+          f"decode_block={args.decode_block}")
+    for sid, mem in enumerate(report.memory_profile):
+        tbt = extra["server_mean_tbt"].get(sid, float("nan"))
+        print(f"server {sid}: requests={report.per_server_counts[sid]} "
+              f"bank_adapters={mem['n_adapters']} "
+              f"bank_max_rank={mem['max_rank']} "
+              f"bank_bytes={mem['adapter_bytes']} "
+              f"mean_tbt={tbt * 1e3:.1f}ms")
+    s = report.summary
+    print(f"bank_mode={report.bank_mode} mesh={report.mesh_shape}")
+    print(f"policy={args.policy} finished={report.completed()}"
+          f"/{len(trace)} p50_ttft={s['p50_ttft']:.3f}s "
+          f"p95_ttft={s['p95_ttft']:.3f}s "
+          f"mean_tbt={s['mean_tbt'] * 1e3:.1f}ms "
+          f"decode_tok/s={extra['decode_tok_s']:.1f} "
+          f"fetch_latency(mean)={s['mean_fetch_latency'] * 1e3:.1f}ms")
+    print(f"rebalances={report.rebalances} "
+          f"placement_changed={report.placement_changed()} "
+          f"pool_fetches={report.fetches} "
+          f"max_adapters/server={report.max_adapters_per_server}")
+    print(f"access_mode={report.access_mode} "
+          f"remote_reads={report.remote_reads} "
+          f"prefetches={report.prefetches} "
+          f"coalesced_fetches={report.coalesced_fetches}")
+    ms = extra["bank_ms"]
+    print(f"banks: builds={extra['bank_builds']} "
+          f"rebuilds={extra['bank_rebuilds']} total_ms={sum(ms):.1f} "
+          f"max_ms={max(ms, default=0.0):.1f}"
+          + (f" peak_mem_gb={torch.cuda.max_memory_allocated(device) / 1e9:.2f}"
+             if device.type == "cuda" else ""))
+    if fault_plan is not None:
+        print(f"chaos: failures={report.server_failures} "
+              f"recoveries={report.recoveries} "
+              f"redispatched={report.redispatched} "
+              f"fetch_retries={report.fetch_retries} "
+              f"fetch_timeouts={report.fetch_timeouts} "
+              f"breaker_opens={report.breaker_opens}")
+    if args.controller:
+        print(f"controller: "
+              f"slo_attainment={report.slo_attainment(args.slo_ttft):.3f} "
+              f"scale_ups={report.scale_ups} drains={report.drains} "
+              f"retires={report.retires} "
+              f"oob_rebalances={report.controller_rebalances} "
+              f"final_servers={report.final_servers} "
+              f"gpu_seconds={report.gpu_seconds:.1f} "
+              f"drift_events={len(report.drift_events)}")
+    print("cluster drained OK")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="full", choices=["full", "smoke"])
@@ -218,7 +511,50 @@ def main():
     ap.add_argument("--backend", choices=["nccl", "gloo"],
                     help="torch.distributed backend of the ranks (default: "
                          "nccl on cuda, gloo on cpu)")
+    cl = ap.add_argument_group(
+        "cluster facade", "--servers N serves through LoRAServeCluster "
+        "over N engines (the JAX package's launcher); --requests, "
+        "--prompt-lens, --max-new, --bank-mode, --decode-block, "
+        "--max-batch, --lora-kernel and --seed apply there too")
+    cl.add_argument("--servers", type=int, default=None)
+    cl.add_argument("--adapters", type=int, default=8)
+    cl.add_argument("--policy", default="loraserve",
+                    choices=sorted(POLICIES))
+    cl.add_argument("--access-mode", default="migrate",
+                    choices=["migrate", "remote-read"],
+                    help="on a placement miss: block on the adapter fetch "
+                         "(migrate) or serve at once, reading the weights "
+                         "from a peer's bank while the local copy warms "
+                         "(remote-read)")
+    cl.add_argument("--prefetch", action="store_true",
+                    help="warm newly placed adapters at each rebalance")
+    cl.add_argument("--controller", action="store_true",
+                    help="run the SLO-driven control plane: drift "
+                         "detection, triggered rebalances, scale-up/drain "
+                         "between --min-servers and --max-servers")
+    cl.add_argument("--slo-ttft", type=float, default=5.0,
+                    help="TTFT target (seconds) the controller defends")
+    cl.add_argument("--slo-target", type=float, default=0.95,
+                    help="required fraction of requests inside the SLO")
+    cl.add_argument("--min-servers", type=int, default=1)
+    cl.add_argument("--max-servers", type=int, default=4)
+    cl.add_argument("--tick-period", type=float, default=1.0,
+                    help="controller tick (seconds)")
+    cl.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="inject a seeded random fault storm over the run")
+    cl.add_argument("--fault-plan", default=None, metavar="PATH",
+                    help="replay a JSON fault schedule "
+                         "(repro_torch.faults.FaultPlan)")
+    cl.add_argument("--detector-window", type=float, default=0.5,
+                    help="heartbeat silence (seconds) before a server is "
+                         "confirmed dead and recovery runs")
+    cl.add_argument("--duration", type=float, default=6.0,
+                    help="seconds the trace's arrivals span")
+    cl.add_argument("--rebalance-period", type=float, default=1.5)
     args = ap.parse_args()
+    if args.servers is not None:
+        _serve_cluster(args)
+        return
     dp, tp = (int(v) for v in args.mesh.split(","))
     if tp == 1 or dp != 1:              # dp > 1 is refused before a spawn
         _serve_rank(0, dp, tp, args)

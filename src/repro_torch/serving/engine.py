@@ -358,6 +358,12 @@ class ServingEngine:
         else:
             self._decode_once()
 
+    def drain_completed(self) -> List[ServeRequest]:
+        """The requests finished since the last call (the backend's
+        completion feed)."""
+        done, self.completed = self.completed, []
+        return done
+
     def cancel(self, req_id: int) -> Optional[ServeRequest]:
         """Abort a live request: drop it from the queue, or free its batch
         slot. Returns the request, or None if it is not live here."""

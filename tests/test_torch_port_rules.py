@@ -1,9 +1,13 @@
 """PyTorch port, package rules: nothing in ``src/repro_torch``,
 ``chip_smoke.py`` or ``tests/_torch_tp_rank.py`` imports JAX or the JAX
 package, and the port's copies of the JAX package's pure-Python modules
-have not drifted."""
+have not drifted: each has its original's syntax tree once imports of
+``repro`` name ``repro_torch`` (module docstrings aside), apart from the
+differences listed here, and the control-plane copies give the
+original's outputs on the same seeded inputs."""
 import ast
 import dataclasses
+import random
 from pathlib import Path
 
 import pytest
@@ -42,7 +46,13 @@ def test_port_tree_is_scanned():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "sgmv.py", "ops.py", "model.py", "bridge.py",
             "mesh.py", "sharding.py", "_torch_tp_rank.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "backend.py", "cluster.py", "pool.py",
+            "orchestrator.py", "network.py", "costmodel.py",
+            "telemetry.py", "controller.py", "plan.py",
+            "detector.py"} <= names
+    subpackages = {p.parent.name for p in PORT_FILES}
+    assert {"core", "cluster", "controlplane", "faults", "serving",
+            "launch"} <= subpackages
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
@@ -73,3 +83,174 @@ def test_request_and_metrics_copies_match():
     assert sums[0].keys() == sums[1].keys()
     for k in sums[0]:
         assert sums[0][k] == pytest.approx(sums[1][k], nan_ok=True)
+
+
+# ---------------------------------------------------------------------------
+# copies of the JAX package's pure-Python modules
+# ---------------------------------------------------------------------------
+SRC = ROOT / "src"
+# port file -> (original, the definition compared or None for the module)
+COPIES = {f: (f, None) for f in (
+    "core/types.py", "core/routing.py", "core/placement.py",
+    "core/baselines.py", "core/demand.py", "core/pool.py",
+    "core/orchestrator.py", "cluster/network.py", "cluster/costmodel.py",
+    "controlplane/__init__.py", "controlplane/telemetry.py",
+    "controlplane/slo.py", "controlplane/drift.py",
+    "controlplane/controller.py", "faults/__init__.py", "faults/plan.py",
+    "faults/injector.py", "faults/detector.py", "faults/recovery.py",
+    "serving/cluster.py")}
+COPIES["core/invariants.py"] = ("analysis/protocol.py",
+                                "check_store_invariants")
+COPIES["serving/backend.py"] = ("serving/backend.py", "ServingBackend")
+
+
+def _tree(path, name):
+    """``path``'s syntax tree, imports of ``repro`` renamed ``repro_torch``
+    and the module docstring dropped; or the definition ``name`` in it."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module.split(".")[0] == "repro":
+            node.module = "repro_torch" + node.module[len("repro"):]
+    body = tree.body
+    if isinstance(body[0], ast.Expr) and isinstance(body[0].value,
+                                                    ast.Constant):
+        tree.body = body[1:]
+    if name is None:
+        return tree
+    defs = [n for n in tree.body if getattr(n, "name", None) == name]
+    assert len(defs) == 1, (path, name)
+    return defs[0]
+
+
+def _method(tree, cls, name):
+    c = next(n for n in tree.body if getattr(n, "name", None) == cls)
+    return next(n for n in c.body if getattr(n, "name", None) == name)
+
+
+def _invariants_import(orig, port):
+    """``core/pool.py``: the invariant sweep comes from the port's copy
+    (``core/invariants.py``), not from the JAX package's analysis
+    suite."""
+    for node in ast.walk(_method(orig, "AdapterStore", "check_invariants")):
+        if isinstance(node, ast.ImportFrom):
+            assert node.module == "repro_torch.analysis.protocol"
+            node.module, node.level = "invariants", 1
+
+
+def _span_layer_refused(orig, port):
+    """``serving/cluster.py``: the span layer (``obs/``) is not ported.
+    The port's constructor starts by refusing ``tracer`` and
+    ``flight_recorder``; the original's tracer wiring goes."""
+    init = _method(port, "LoRAServeCluster", "__init__")
+    refusal = init.body.pop(0)
+    assert isinstance(refusal, ast.If) and {
+        n.id for n in ast.walk(refusal.test) if isinstance(n, ast.Name)
+    } == {"tracer", "flight_recorder"}
+    assert refusal.body[0].exc.func.id == "NotImplementedError"
+    init = _method(orig, "LoRAServeCluster", "__init__")
+    wiring = [s for s in init.body if isinstance(s, ast.If)
+              and ast.unparse(s.test) == "tracer is not None"]
+    assert len(wiring) == 1
+    init.body.remove(wiring[0])
+
+
+INTENDED = {"core/pool.py": _invariants_import,
+            "serving/cluster.py": _span_layer_refused}
+
+
+@pytest.mark.parametrize("port_file", sorted(COPIES))
+def test_copied_module_has_the_originals_syntax_tree(port_file):
+    orig_file, name = COPIES[port_file]
+    orig = _tree(SRC / "repro" / orig_file, name)
+    port = _tree(SRC / "repro_torch" / port_file, name)
+    if port_file in INTENDED:
+        INTENDED[port_file](orig, port)
+    assert ast.dump(port) == ast.dump(orig)
+
+
+def test_core_exports_the_jax_packages_names():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    # the simulator's request alias has no simulator in the port yet
+    assert set(tcore.__all__) == set(jcore.__all__) - {"SimRequest"}
+    for name in tcore.__all__:
+        getattr(tcore, name)
+
+
+def _placement_case(pkg, seed):
+    """``assign_loraserve`` twice (the second from the first's placement,
+    with shifted demand) on seeded adapters."""
+    rng = random.Random(seed)
+    ops = {8: 4000.0, 16: 3900.0, 32: 3700.0, 64: 3400.0, 128: 2900.0}
+    adapters = [pkg.AdapterInfo(f"a{i}", rng.choice(sorted(ops)))
+                for i in range(rng.randrange(4, 30))]
+    n = rng.randrange(2, 6)
+    out, prev = [], None
+    for _ in range(2):
+        demand = {a.adapter_id: rng.uniform(0.0, 3000.0) for a in adapters}
+        prev, stats = pkg.assign_loraserve(pkg.PlacementContext(
+            n_servers=n, adapters=adapters, demand_tps=demand,
+            operating_points=ops, prev_placement=prev))
+        out.append((prev, dataclasses.asdict(stats)))
+    return out
+
+
+def _routing_case(pkg, seed):
+    """A seeded routing table: routes, a blocked and unblocked server, the
+    per-adapter counts."""
+    rng = random.Random(seed)
+    placement = {}
+    for i in range(6):
+        servers = rng.sample(range(4), rng.randrange(1, 4))
+        if servers == [1]:       # server 1 is blocked below
+            servers.append(0)
+        w = [rng.random() + 0.1 for _ in servers]
+        placement[f"a{i}"] = {s: x / sum(w) for s, x in zip(servers, w)}
+    table = pkg.RoutingTable(placement, seed=seed)
+    routes = [table.route_detailed(f"a{rng.randrange(6)}", rng.random())
+              for _ in range(50)]
+    table.block_server(1)
+    routes += [table.route(f"a{i}") for i in range(6)]
+    table.unblock_server(1)
+    return routes, table.reset_counts()
+
+
+def _pool_case(pkg, net, seed):
+    """A seeded adapter store: seed, a new placement, fetches, remote
+    reads, polls, a failed server; its state and counters after each."""
+    rng = random.Random(seed)
+    adapters = [pkg.AdapterInfo(f"a{i}", 8 << (i % 5),
+                                nbytes=rng.randrange(1, 400) * 1_000_000)
+                for i in range(8)]
+    store = pkg.AdapterStore(4, adapters, net.NetworkModel())
+    store.seed({a.adapter_id: {i % 4: 1.0} for i, a in enumerate(adapters)})
+    store.apply_placement({a.adapter_id: {(i + 1) % 4: 0.5, i % 4: 0.5}
+                           for i, a in enumerate(adapters)}, now=0.0)
+    plans, now = [], 0.0
+    for _ in range(20):
+        now += rng.random() * 0.05
+        aid, sid = f"a{rng.randrange(8)}", rng.randrange(4)
+        p = (store.start_fetch(sid, aid, now=now) if rng.random() < 0.5
+             else store.plan_access(sid, aid, now=now,
+                                    access_mode="remote-read"))
+        plans.append(dataclasses.asdict(p))
+        plans += [dataclasses.asdict(q) for q in store.poll(now)]
+    orphans = store.fail_server(2, now=now)
+    plans += [dataclasses.asdict(q) for q in store.poll(now + 10.0)]
+    state = ({s: sorted(v) for s, v in enumerate(store.local)},
+             {a: sorted(v) for a, v in store.index.items()},
+             store.fetches, store.remote_reads, store.coalesced,
+             store.total_bytes())
+    return plans, sorted(orphans), state, store.check_invariants(now + 10.0)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_control_plane_copies_give_the_originals_outputs(seed):
+    import repro.cluster.network as jnet
+    import repro.core as jcore
+    import repro_torch.cluster.network as tnet
+    import repro_torch.core as tcore
+    assert _placement_case(tcore, seed) == _placement_case(jcore, seed)
+    assert _routing_case(tcore, seed) == _routing_case(jcore, seed)
+    assert _pool_case(tcore, tnet, seed) == _pool_case(jcore, jnet, seed)
