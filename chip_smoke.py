@@ -36,8 +36,10 @@ Phases (any failure raises; the script then exits non-zero):
                names the shrink split C of B1, B2, B3a and B4a, the
                expand's tile of B1, B2, B3b and B4b (``mma`` on bf16
                tensor cores, ``fma`` in fp32; B3b's and B4b's grid) and
-               B5's tile. A ``yardstick`` line times B3b's bf16 calls as
-               ``B[aid]``-gathered ``torch.bmm``. Then, for B1 in bf16 on
+               B5's tile. ``yardstick`` lines time B2's, B3a's and B3b's
+               bf16 calls as ``torch.bmm`` over the blocks that hold
+               tokens, their adapters' ``A[aid]``/``B[aid]`` gathered (B2:
+               a pair per rank bucket). Then, for B1 in bf16 on
                its decode and prefill calls: its time at C = 4, 8 and 16
                beside the cluster occupancy the card reports, and a
                yardstick, ``A[aid]``-gathered ``torch.bmm`` then
@@ -82,7 +84,8 @@ Phases (any failure raises; the script then exits non-zero):
                held NaN) and B4b ``sgmv_multibank_expand`` (bucketed) and
                B3a/B3b (padded) at d_local = d_out_local = 2048, decode
                and prefill, and B5 on both prefill groups' 16 local
-               heads, with B3b's yardstick on its two calls; and B4a
+               heads, with the yardsticks of B4a, B4b (per rank bucket),
+               B3a and B3b on their calls; and B4a
                then B4b (block_t 16) equal to B2 (the plan's block_t)
                bit for bit on phase 2's recorded bucketed calls (tp = 1
                shapes).
@@ -106,17 +109,52 @@ Phases (any failure raises; the script then exits non-zero):
                server 0 killed at 1.0 s: one failure, one recovery,
                every request complete with the fault-free run's tokens.
                The kernels line keeps phase 2's launch counts.
+  9. gateway — right after phase 8, on the same bf16 params: (a) the
+               streaming HTTP gateway (``repro_torch.server.ServeGateway``
+               on 127.0.0.1, its loop in a thread) over 2 servers
+               (bucketed, decode_block 4, max batch 8, the launcher's 8
+               adapters) with a wall-clock ``Tracer`` and a
+               ``FlightRecorder``: ``GET /healthz``, a 9th adapter (rank
+               64) registered with ``POST /v1/adapters``, 8 concurrent SSE
+               completions over the 9 adapters (prompts of 64 and 128,
+               16 tokens each), one adapter deleted while its stream is
+               in flight, ``GET /metrics``, then ``begin_shutdown`` (what
+               SIGTERM does): every stream gets its 16 tokens in index
+               order, ``/metrics`` carries the TTFT histogram, each
+               request's span tree has the ``REQUEST_PHASES`` children
+               and they sum to within 1% of its root, the Perfetto file
+               parses, B2 launched 4 x 32 times a model pass and B5 32
+               times a prefill group over both engines; TTFT, TBT, tok/s,
+               spans, the cost-model drift (the paper's A100 model
+               against the measured spans) and peak memory beside
+               nvidia-smi's line. (b) Phase 5's fp32 2-layer model: 4
+               requests sent one after another over the gateway (one
+               adapter registered over HTTP) give the tokens of the same
+               requests through the facade's ``run``, bit for bit. (c)
+               ``python -m repro_torch.launch.server --backend engine
+               --config full --port 0`` streams one request and exits 0
+               on SIGTERM, printing ``gateway drained OK``; so does
+               ``python -m repro_torch.launch.serve --serve 127.0.0.1:0
+               --config full --trace-out F``, which writes the span trace
+               and prints the ``costmodel[phase]`` lines.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
 """
+import asyncio
 import dataclasses
 import gc
+import http.client
 import json
+import os
+import random
+import select
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -522,17 +560,50 @@ def _b1_splits_and_yardstick(calls, flush):
             "library calls and two gathers, not one call)")
 
 
-def _b3b_yardstick(layout, h, B, ba, flush):
-    """B3b's yardstick on one of its bf16 calls, timed only (the port
-    never calls it): ``B[block_adapter]`` gathered, then ``torch.bmm`` of
-    the token blocks."""
-    nb = h.shape[0] // BLOCK_T
-    hb = h[:nb * BLOCK_T].view(nb, BLOCK_T, h.shape[1])
-    idx = ba[:nb].long()
-    ms = _time_ms(lambda: torch.bmm(hb, B[idx]), flush)
-    log(f"yardstick: B3b layout={layout} h={tuple(h.shape)} "
-        f"d_out={B.shape[-1]} gathered torch.bmm bf16 ms={ms:.4f} (a "
-        "gather and a library call, not one call)")
+def _yardstick(kid, layout, args, kw, dest, flush):
+    """The yardstick of B2, B3a, B3b, B4a or B4b on one of its bf16 calls,
+    timed only (the port never calls it): the blocks that hold tokens,
+    their adapters' weights gathered (``A[aid]``, ``B[aid]``), then
+    ``torch.bmm`` of the token blocks: B3a ``x @ A``, B3b ``h @ B``; per
+    rank bucket (blocks sorted on the host first), B4a ``x @ A_b``, B4b
+    ``h[:, :r_b] @ B_b``, B2 ``(x @ A_b) @ B_b``."""
+    bt = _block_t(kw)
+    x = args[0]
+    nb = x.shape[0] // bt
+    xb = x[:nb * bt].view(nb, bt, x.shape[1])
+    used = sorted(set((dest.long() // bt).tolist()))
+    if kid in ("B3a", "B3b"):
+        W, ba = args[1], args[-1]
+        blk = torch.tensor(used, device=x.device)
+        idx = ba[blk].long()
+        call = lambda: torch.bmm(xb[blk], W[idx])            # noqa: E731
+        what = "a gather and a library call"
+    else:
+        bkt, row = args[2].tolist(), args[3]
+        groups = []
+        for b in sorted({bkt[i] for i in used}):
+            blk = torch.tensor([i for i in used if bkt[i] == b],
+                               device=x.device)
+            groups.append((b, blk, row[blk].long()))
+        if kid == "B2":
+            def call():
+                return [torch.bmm(torch.bmm(xb[blk], args[1][b][0][idx]),
+                                  args[1][b][1][idx])
+                        for b, blk, idx in groups]
+        else:
+            W = args[1]
+
+            def call():                 # B4b reads h's first r_b columns
+                return [torch.bmm(xb[blk] if kid == "B4a" else
+                                  xb[blk][..., :W[b].shape[1]], W[b][idx])
+                        for b, blk, idx in groups]
+        what = (f"{len(groups)} bucket(s): "
+                f"{(2 if kid == 'B2' else 1) * len(groups)} library calls "
+                "and their gathers")
+    ms = _time_ms(call, flush)
+    log(f"yardstick: {kid} layout={layout} in={tuple(x.shape)} "
+        f"block_t={bt} blocks={len(used)} gathered torch.bmm bf16 "
+        f"ms={ms:.4f} ({what}, not one call)")
 
 
 def _b2_block_sizes(calls, flush):
@@ -591,13 +662,14 @@ def phase_kernels(dev, calls):
     """Each kernel wrapper and its plain version on the arguments of the
     main path's own calls (bf16, as the engine ran them, and the same
     tensors cast to fp32); B2 at block_t 16, 32 and 64 on the prefill
-    group; B1's split sweep and yardstick, B3b's yardstick."""
+    group; B1's split sweep and yardstick, the gathered-bmm yardsticks of
+    B2, B3a and B3b."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     results = {}
     for kid, layout, args0, kw, dest in _kernel_cases(calls):
         _check_and_time(kid, layout, args0, kw, dest, flush, results)
-        if kid == "B3b":
-            _b3b_yardstick(layout, *args0, flush)
+        if kid in ("B2", "B3a", "B3b"):
+            _yardstick(kid, layout, args0, kw, dest, flush)
     _b2_block_sizes(calls, flush)
     _b1_splits_and_yardstick(calls, flush)
     del flush
@@ -1136,8 +1208,8 @@ def phase_split(dev, cfg, tp_calls, b2_calls):
                 label = layout if kid in ("B4a", "B4b") else \
                     f"tp{TP}-{layout}"
             _check_and_time(kid, label, args, kw, dest, flush, results)
-            if kid == "B3b":
-                _b3b_yardstick(label, *args, flush)
+            if kid != "B5":
+                _yardstick(kid, label, args, kw, dest, flush)
     del flush
     for layout in ("decode", "prefill"):
         args, kw, _ = b2_calls[layout]
@@ -1207,11 +1279,10 @@ def _cluster_run(cfg, params, weights, mode, *, kill=None, wall=False,
     return cluster, report, trace, launches
 
 
-def _cluster_launches(cfg, cluster, mode, launches):
+def _cluster_launches(cfg, engines, mode, launches):
     """The mode's SGMV kernel launched 4 x 32 times a model pass and B5
-    32 times a prefill group, over all engines together; nothing else.
+    32 times a prefill group, over ``engines`` together; nothing else.
     Returns (model passes, prefill groups)."""
-    engines = [e for e in cluster.backend.engines if e is not None]
     passes = sum(e.prefill_dispatches + e.decode_iterations for e in engines)
     groups = sum(e.prefill_dispatches for e in engines)
     want = {kid: 0 for kid in KERNELS}
@@ -1220,6 +1291,10 @@ def _cluster_launches(cfg, cluster, mode, launches):
     want["B5"] = cfg.n_layers * groups
     assert launches == want, (launches, want)
     return passes, groups
+
+
+def _engines(cluster):
+    return [e for e in cluster.backend.engines if e is not None]
 
 
 def _tokens(trace):
@@ -1253,7 +1328,8 @@ def phase_cluster(dev, cfg, params, smi):
         cluster, rep, trace, launches = _cluster_run(cfg, params, weights,
                                                      mode)
         peak = torch.cuda.max_memory_allocated(dev)
-        passes, groups = _cluster_launches(cfg, cluster, mode, launches)
+        passes, groups = _cluster_launches(cfg, _engines(cluster), mode,
+                                           launches)
         assert rep.rebalances >= 1 and rep.placement_changed(), \
             (rep.rebalances, rep.placements)
         be = cluster.backend
@@ -1285,7 +1361,7 @@ def phase_cluster(dev, cfg, params, smi):
     # (b) remote reads
     cluster, rep, trace, launches = _cluster_run(
         cfg, params, weights, "bucketed", access_mode="remote-read")
-    _cluster_launches(cfg, cluster, "bucketed", launches)
+    _cluster_launches(cfg, _engines(cluster), "bucketed", launches)
     assert rep.remote_reads >= 1, rep.remote_reads
     assert _tokens(trace) == runs["bucketed"][2], "remote-read tokens differ"
     log(f"cluster (b) access_mode=remote-read: remote_reads="
@@ -1298,7 +1374,7 @@ def phase_cluster(dev, cfg, params, smi):
     cluster, rep, trace, launches = _cluster_run(cfg, params, weights,
                                                  "bucketed", wall=True)
     peak = torch.cuda.max_memory_allocated(dev)
-    _cluster_launches(cfg, cluster, "bucketed", launches)
+    _cluster_launches(cfg, _engines(cluster), "bucketed", launches)
     extra = cluster_summary(cluster, rep, trace)
     s = rep.summary
     per_tbt = {k: round(v * 1e3, 3)
@@ -1336,6 +1412,327 @@ def phase_cluster(dev, cfg, params, smi):
     _free()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the streaming HTTP gateway
+# ---------------------------------------------------------------------------
+GATEWAY = dict(prompt_lens=(64, 128), max_new=16, max_batch=8,
+               decode_block=4, mode="bucketed")
+
+
+class _Gateway:
+    """``ServeGateway`` over ``cluster`` on 127.0.0.1 (an ephemeral port),
+    its event loop in a thread; ``stop()`` does what SIGTERM does
+    (``begin_shutdown``: finish in flight, then tear down) and returns the
+    final report. A pump that died is raised again by ``stop()``."""
+
+    def __init__(self, cluster):
+        from repro_torch.server import ServeGateway
+        self.gw = ServeGateway(cluster, "127.0.0.1", 0)
+        self.ready = threading.Event()
+        self.loop = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        assert self.ready.wait(120), "the gateway did not start"
+        self.port = self.gw.port
+
+    def _run(self):
+        self.loop = asyncio.new_event_loop()
+
+        async def main():
+            await self.gw.start()
+            self.ready.set()
+            await self.gw.serve_until_stopped()
+
+        try:
+            self.loop.run_until_complete(main())
+        finally:
+            self.loop.close()
+
+    def stop(self):
+        self.loop.call_soon_threadsafe(self.gw.begin_shutdown)
+        self.thread.join(600)
+        assert not self.thread.is_alive(), "the gateway did not drain"
+        self.gw._pump_task.result()
+        return self.gw.final_report
+
+
+def _http(port, method, path, body=None):
+    """One request; (status, the JSON body or the text)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    json_body = "json" in (resp.getheader("Content-Type") or "")
+    return resp.status, json.loads(raw) if json_body else raw.decode()
+
+
+def _stream(port, payload, first=None):
+    """``POST /v1/completions``, streamed: (status, the SSE frames up to
+    ``[DONE]``, host seconds at the first token and at the last frame).
+    ``first`` (an event) is set at the first token."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/v1/completions", json.dumps(payload),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    frames, t_first, t_last = [], None, None
+    while resp.status == 200:
+        raw = resp.fp.readline()
+        line = raw.decode().strip()
+        if not raw or line == "data: [DONE]":
+            break
+        if line.startswith("data: "):
+            frames.append(json.loads(line[6:]))
+            t_last = time.monotonic()
+            if frames[-1]["tokens"] and t_first is None:
+                t_first = t_last
+                if first is not None:
+                    first.set()
+    conn.close()
+    return resp.status, frames, t_first, t_last
+
+
+def _streamed_tokens(frames, n):
+    """The tokens of a stream whose frames come in index order without
+    gaps, ``n`` of them, ending with a stop."""
+    toks = []
+    for f in frames:
+        assert f["index"] == len(toks), (f["index"], len(toks))
+        toks += f["tokens"]
+    assert len(toks) == n and frames[-1]["finish_reason"] == "stop", \
+        (len(toks), frames[-1])
+    return toks
+
+
+def _readline(proc, timeout):
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    assert ready, f"no output from the launcher in {timeout} s"
+    return proc.stdout.readline().strip()
+
+
+def _gateway_full_width(dev, cfg, params, smi):
+    """Phase 9 (a): 2 servers, bf16, 32 layers, over the gateway."""
+    from repro_torch.launch.serve import (adapter_weights, cluster_adapters,
+                                          make_cluster, print_cost_drift)
+    from repro_torch.obs import (REQUEST_PHASES, FlightRecorder, Tracer,
+                                 WallClock, write_perfetto)
+    g = GATEWAY
+    adapters = cluster_adapters(8)
+    weights = adapter_weights(cfg, {a.adapter_id: a.rank for a in adapters},
+                              dtype=torch.bfloat16, device=dev, seed=3)
+    ids = ["hot-r64"] + [a.adapter_id for a in adapters]
+    busy = ids[4]
+    rng = random.Random(9)
+    prompts = [[rng.randrange(1, cfg.vocab_size)
+                for _ in range(g["prompt_lens"][i % 2])] for i in range(8)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tracer = Tracer(clock=WallClock())
+        recorder = FlightRecorder(out_dir=tmp)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cluster = make_cluster(
+            cfg, params, adapters, weights, 2,
+            max_len=max(g["prompt_lens"]) + g["max_new"] + 8,
+            max_batch=g["max_batch"], bank_mode=g["mode"],
+            decode_block=g["decode_block"], rebalance_period=1e9,
+            tracer=tracer, flight_recorder=recorder, device=dev)
+        wrappers = _wrappers()
+        for k in wrappers.values():
+            k.launches = 0
+        gw = _Gateway(cluster)
+        status, health = _http(gw.port, "GET", "/healthz")
+        assert status == 200 and health["status"] == "ok", (status, health)
+        status, created = _http(gw.port, "POST", "/v1/adapters",
+                                {"adapter_id": "hot-r64", "rank": 64})
+        assert status == 201, (status, created)
+        results, firsts = [None] * 8, [threading.Event() for _ in range(8)]
+
+        def client(i):
+            results[i] = _stream(gw.port, {
+                "adapter_id": ids[i], "prompt": prompts[i],
+                "max_tokens": g["max_new"]}, firsts[i])
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        assert firsts[4].wait(600), f"{busy}'s stream never started"
+        status, body = _http(gw.port, "DELETE", f"/v1/adapters/{busy}")
+        assert status == 202 and body["draining"], (status, body)
+        in_flight = results[4] is None
+        for t in threads:
+            t.join(600)
+            assert not t.is_alive(), "a stream did not end"
+        status, metrics = _http(gw.port, "GET", "/metrics")
+        assert status == 200 and "repro_ttft_seconds_bucket" in metrics
+        engines = _engines(cluster)
+        report = gw.stop()
+        torch.cuda.synchronize()
+        launches = {kid: k.launches for kid, k in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        passes, groups = _cluster_launches(cfg, engines, g["mode"], launches)
+        for status, frames, _, _ in results:
+            assert status == 200, status
+            _streamed_tokens(frames, g["max_new"])
+        assert report.completed() == 8 and report.timed_out == 0, \
+            (report.completed(), report.timed_out)
+        assert report.registered == 1 and report.unregistered == 1
+        trees = 0
+        for rid, spans in tracer.by_request().items():
+            root = [s for s in spans if s.name == "request"]
+            if not root:
+                continue
+            trees += 1
+            kids = {s.name: s for s in spans
+                    if s.parent_id == root[0].span_id}
+            assert set(kids) == set(REQUEST_PHASES), (rid, sorted(kids))
+            total = sum(kids[p].duration for p in REQUEST_PHASES)
+            assert abs(total - root[0].duration) <= 0.01 * \
+                root[0].duration, (rid, total, root[0].duration)
+        assert trees == 8, trees
+        path = Path(tmp) / "gateway.perfetto.json"
+        n = write_perfetto(tracer, str(path))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        assert n == tracer.n_spans and len(events) > n
+        t_first = min(r[2] for r in results)
+        t_last = max(r[3] for r in results)
+        tok_s = 8 * (g["max_new"] - 1) / (t_last - t_first)
+        s = report.summary
+        log(f"gateway (a) llama-7b-paper {cfg.n_layers} layers bf16, 2 "
+            f"servers, {g['mode']}, decode_block {g['decode_block']}, 8 SSE "
+            f"streams over 9 adapters (hot-r64 registered over HTTP, {busy} "
+            f"deleted with its stream in flight: {in_flight}) | {smi}: "
+            f"p50_ttft_ms={report.p50_ttft() * 1e3:.2f} "
+            f"p95_ttft_ms={report.p95_ttft() * 1e3:.2f} "
+            f"mean_tbt_ms={s['mean_tbt'] * 1e3:.3f} "
+            f"decode_tok_s={tok_s:.1f} (client clock) spans={tracer.n_spans} "
+            f"request_trees={trees} model_passes={passes} "
+            f"prefill_groups={groups} launches="
+            f"{ {k: v for k, v in launches.items() if v} } "
+            f"per_server={report.per_server_counts} "
+            f"peak_gb={peak / 1e9:.2f} perfetto_events={len(events)}")
+        print_cost_drift(report)
+        sys.stdout.flush()
+        del cluster, engines, gw
+    _free()
+    return launches
+
+
+def _gateway_fp32_parity(dev):
+    """Phase 9 (b): phase 5's fp32 2-layer model; requests one after
+    another over the gateway (one adapter registered over HTTP) against
+    the same requests through the facade's ``run``, each alone in its
+    batch."""
+    from repro_torch.core import AdapterInfo, ServeRequest
+    from repro_torch.launch.serve import (adapter_weights, cluster_adapters,
+                                          make_cluster)
+    g = GATEWAY
+    cfg, params, _, _ = _parity_setup(dev)
+    adapters = cluster_adapters(8)
+    ranks = {a.adapter_id: a.rank for a in adapters}
+    weights = adapter_weights(cfg, ranks, dtype=torch.float32, device=dev,
+                              seed=4)
+    hot = AdapterInfo("hot-r64", 64, nbytes=64 * 2_000_000)
+    picks = [("hot-r64", 64), ("ad0-r8", 8), ("ad3-r64", 64),
+             ("ad4-r128", 128)]
+    rng = random.Random(10)
+    prompts = [[rng.randrange(1, cfg.vocab_size)
+                for _ in range(g["prompt_lens"][i % 2])] for i in range(4)]
+
+    def cluster_of(ads):
+        return make_cluster(
+            cfg, params, ads, weights, 2,
+            max_len=max(g["prompt_lens"]) + g["max_new"] + 8,
+            max_batch=g["max_batch"], bank_mode=g["mode"],
+            decode_block=g["decode_block"], rebalance_period=1e9,
+            device=dev)
+
+    trace = [ServeRequest(req_id=i, adapter_id=aid, rank=r,
+                          prompt_len=len(p), output_len=g["max_new"],
+                          prompt=list(p), arrival=0.5 * i)
+             for i, ((aid, r), p) in enumerate(zip(picks, prompts))]
+    rep = cluster_of(adapters + [hot]).run(trace)
+    assert rep.completed() == len(trace), rep.completed()
+    for a, b in zip(trace, trace[1:]):
+        assert a.finish <= b.arrival, "a request was not alone in its batch"
+    want = [list(r.output) for r in trace]
+    _free()
+    gw = _Gateway(cluster_of(adapters))
+    status, _ = _http(gw.port, "POST", "/v1/adapters",
+                      {"adapter_id": "hot-r64", "rank": 64})
+    assert status == 201, status
+    got = []
+    for (aid, _), p in zip(picks, prompts):
+        status, frames, _, _ = _stream(gw.port, {
+            "adapter_id": aid, "prompt": p, "max_tokens": g["max_new"]})
+        assert status == 200, status
+        got.append(_streamed_tokens(frames, g["max_new"]))
+    report = gw.stop()
+    assert report.completed() == len(picks) and report.registered == 1
+    assert got == want, (got, want)
+    log(f"gateway (b) fp32 {cfg.n_layers} layers, 4 requests one after "
+        f"another over the gateway (hot-r64 registered over HTTP): SSE "
+        f"tokens equal the facade's run bit for bit; first {got[0]}")
+    del params, gw
+    _free()
+
+
+def _gateway_launcher(args):
+    """Phase 9 (c): ``python -m <args>`` (a gateway launcher; the card by
+    default) streams one request and drains on SIGTERM with exit code 0
+    and ``gateway drained OK`` last. Returns its output."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = _readline(proc, 300)
+        assert line.startswith("listening on "), line
+        up = time.monotonic() - t0
+        status, frames, _, _ = _stream(int(line.rsplit(":", 1)[1]), {
+            "adapter_id": "ad0-r8", "prompt_len": 8, "max_tokens": 4})
+        assert status == 200, status
+        toks = _streamed_tokens(frames, 4)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, (proc.returncode, out)
+    lines = out.strip().splitlines()
+    assert lines[-1] == "gateway drained OK", out
+    log(f"gateway (c) python -m {' '.join(args)}: listening after "
+        f"{up:.1f}s, streamed {toks}, exit 0 on SIGTERM; it printed: "
+        f"{' | '.join(lines)}")
+    return out
+
+
+def phase_gateway(dev, cfg, params, smi):
+    """Phase 9 on phase 2's bf16 ``params``: (a) full width, (b) fp32
+    parity with the facade, (c) the launchers: ``launch.server``, and
+    ``launch.serve --serve`` writing its span trace. Returns (a)'s
+    launches."""
+    launches = _gateway_full_width(dev, cfg, params, smi)
+    _gateway_fp32_parity(dev)
+    _gateway_launcher(["repro_torch.launch.server", "--backend", "engine",
+                       "--config", "full", "--port", "0"])
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "spans.jsonl"
+        out = _gateway_launcher([
+            "repro_torch.launch.serve", "--serve", "127.0.0.1:0",
+            "--config", "full", "--trace-out", str(trace)])
+        names = {json.loads(x)["name"]
+                 for x in trace.read_text().splitlines()}
+        assert {"request", "gateway.receive", "prefill", "decode"} <= names
+        assert "costmodel[decode]" in out, out
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1362,6 +1759,10 @@ def main() -> int:
     t0 = time.monotonic()
     phase_cluster(dev, cfg, params, smi)
     log(f"phase cluster: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    gw_launches = phase_gateway(dev, cfg, params, smi)
+    log(f"phase gateway: {time.monotonic() - t0:.1f}s; launches "
+        f"{ {k: v for k, v in gw_launches.items() if v} }")
     _noise_floor(cfg, params, dev, tp_ref, einsum)
     del params
     torch.cuda.empty_cache()

@@ -9,7 +9,7 @@ from .demand import DemandEstimator
 from .orchestrator import ClusterOrchestrator
 from .placement import assign_loraserve
 from .pool import AdapterStore, DistributedAdapterPool, FetchPlan
-from .request import Phase, Request, ServeRequest
+from .request import Phase, Request, ServeRequest, SimRequest
 from .routing import RetiredServerError, RoutingTable, UnknownAdapterError
 from .types import (AdapterInfo, Placement, PlacementContext,
                     PlacementStats, servers_to_adapters)
@@ -17,7 +17,7 @@ from .types import (AdapterInfo, Placement, PlacementContext,
 __all__ = ["ContiguousPolicy", "LoraservePolicy", "POLICIES", "RandomPolicy",
            "ToppingsPolicy", "DemandEstimator", "ClusterOrchestrator",
            "assign_loraserve", "AdapterStore", "DistributedAdapterPool",
-           "FetchPlan", "Phase", "Request", "ServeRequest",
+           "FetchPlan", "Phase", "Request", "ServeRequest", "SimRequest",
            "RetiredServerError", "RoutingTable", "UnknownAdapterError",
            "AdapterInfo", "Placement", "PlacementContext", "PlacementStats",
            "servers_to_adapters"]

@@ -1,6 +1,6 @@
 """Request lifecycle type of the PyTorch port: a copy of the JAX
-package's ``core/request.py`` (``Phase``, ``ServeRequest``, ``Request``),
-kept here so the port imports nothing of ``repro``.
+package's ``core/request.py`` (``Phase``, ``ServeRequest``, ``Request``,
+``SimRequest``), kept here so the port imports nothing of ``repro``.
 
 Every request carries its workload shape (``prompt_len``/``output_len``),
 optionally concrete prompt tokens for real execution, and one set of
@@ -98,3 +98,8 @@ def Request(req_id: int, adapter_id: str, prompt: List[int],
                         prompt_len=len(prompt),
                         output_len=int(max_new_tokens),
                         arrival=arrival, prompt=list(prompt))
+
+
+# The simulator constructs requests with (req_id, adapter_id, rank,
+# prompt_len, output_len, arrival) keywords — same dataclass, same name.
+SimRequest = ServeRequest

@@ -31,6 +31,18 @@ seconds with drifting popularity (low ranks early, high ranks late). The
 engines step in turn on one device. Example, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
       --device cpu --servers 2 --requests 12 --duration 2
+
+``--serve HOST:PORT`` serves that cluster (2 servers unless ``--servers``
+says otherwise) over the streaming HTTP gateway until SIGTERM instead
+(``launch.server.run_gateway``; ``--rate`` and ``--max-inflight`` admit
+per tenant). ``--trace-out PATH`` records the span tree of every request
+(``.jsonl``: one span a line; otherwise a Perfetto JSON document) and
+``--flight-recorder DIR`` dumps the recent spans on SLO violations and
+scale events; with either, the report ends with the cost-model drift per
+phase: measured spans against the paper's A100 fleet model
+(``cluster/costmodel.py``), not a model of the card. Example, on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve 127.0.0.1:0 \
+      --trace-out t.json
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import random
 import tempfile
 import time
 import weakref
+import zlib
 from pathlib import Path
 
 import torch
@@ -46,6 +59,7 @@ import torch
 from repro_torch.cluster import NetworkModel
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import POLICIES, AdapterInfo, ServeRequest
+from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_engine_mesh, spawn
 from repro_torch.models import model as M
 from repro_torch.serving import (EngineBackend, LoRAServeCluster, Request,
@@ -114,6 +128,17 @@ def adapter_weights(cfg, ranks, *, dtype, device, seed):
                             * (0.5 / r ** 0.5)).to(dtype)}
                   for t in cfg.lora.targets}
             for aid, r in ranks.items()}
+
+
+def registered_weights(cfg, adapter_id: str, rank: int, *, dtype, device,
+                       seed):
+    """The weights of an adapter that was not among the seeded ones (one
+    registered at run time, over HTTP): ``adapter_weights`` of that
+    adapter alone, from a seed made of ``seed`` and the adapter's id, so
+    an id gets the same weights in every run."""
+    return adapter_weights(
+        cfg, {adapter_id: rank}, dtype=dtype, device=device,
+        seed=zlib.crc32(f"{seed}:{adapter_id}".encode()))[adapter_id]
 
 
 def profiled(fn, device):
@@ -249,10 +274,12 @@ class SeededWeightsBackend(EngineBackend):
     adapter go in again (an adapter just read from a peer keeps the peer's
     bytes). ``bank_ms`` holds the milliseconds of each such call, build or
     rebuild and installs, ended by a device sync; ``bank_builds`` and
-    ``bank_rebuilds`` count them."""
+    ``bank_rebuilds`` count them. An adapter missing from ``weights`` (one
+    registered at run time) gets ``registered_weights`` from the backend's
+    seed, in the params' dtype."""
 
     def __init__(self, *args, weights, **kw):
-        self.weights = weights
+        self.weights = dict(weights)
         self.bank_ms = []
         self.bank_builds = 0
         self.bank_rebuilds = 0
@@ -273,7 +300,7 @@ class SeededWeightsBackend(EngineBackend):
             return
         for aid, rank in eng.adapter_ranks.items():
             if aid != remote or aid not in self._remote[server_id]:
-                eng.install_adapter(aid, rank, self.weights[aid])
+                eng.install_adapter(aid, rank, self.weights_of(aid, rank))
         self._installed[eng] = eng.bank_rebuilds
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -282,6 +309,15 @@ class SeededWeightsBackend(EngineBackend):
             self.bank_builds += 1
         else:
             self.bank_rebuilds += 1
+
+    def weights_of(self, adapter_id, rank):
+        """The seeded weights of ``adapter_id``, made on first use for an
+        adapter registered at run time."""
+        if adapter_id not in self.weights:
+            self.weights[adapter_id] = registered_weights(
+                self.cfg, adapter_id, rank, dtype=self.params.embed.dtype,
+                device=self.device, seed=self.seed)
+        return self.weights[adapter_id]
 
     def load_adapters(self, server_id, adapter_ranks):
         t0 = time.perf_counter()
@@ -307,10 +343,11 @@ def make_cluster(cfg, params, adapters, weights, n_servers: int, *,
                  rebalance_period: float = 1.5, access_mode: str = "migrate",
                  prefetch: bool = False, controller=None, fault_plan=None,
                  detector_window: float = 0.5, mesh_shape=None,
-                 device="cuda"):
+                 tracer=None, flight_recorder=None, device="cuda"):
     """``LoRAServeCluster`` over a ``SeededWeightsBackend`` of ``n_servers``
     engines that share ``params``, set up as the JAX package's launcher
-    sets up its cluster. Building it places the adapters and builds the
+    sets up its cluster (``tracer``, ``flight_recorder``: the span layer,
+    ``repro_torch.obs``). Building it places the adapters and builds the
     engines."""
     backend = SeededWeightsBackend(
         cfg, params, n_servers, weights=weights, max_batch=max_batch,
@@ -321,6 +358,7 @@ def make_cluster(cfg, params, adapters, weights, n_servers: int, *,
         backend, adapters, policy=policy, network=NetworkModel(),
         rebalance_period=rebalance_period, seed=seed,
         access_mode=access_mode, prefetch=prefetch, controller=controller,
+        tracer=tracer, flight_recorder=flight_recorder,
         fault_plan=fault_plan, detector_window=detector_window,
         durable_ssd=fault_plan is not None)
 
@@ -378,9 +416,24 @@ def cluster_summary(cluster, report, trace) -> dict:
             "bank_ms": list(be.bank_ms)}
 
 
+def print_cost_drift(report) -> None:
+    """The ``costmodel[phase]`` lines: measured iteration spans against
+    the cost model's prediction for the same batch shapes. The model is
+    the paper's A100 fleet's (``cluster/costmodel.py``), so on the card
+    the bias is H100 against A100, not an error of a model of the card."""
+    for phase, d in sorted(report.cost_drift.items()):
+        print(f"costmodel[{phase}]: n={d['count']} "
+              f"modeled={d['modeled_s']:.3f}s "
+              f"measured={d['measured_s']:.3f}s "
+              f"bias={d['bias']:+.1%} "
+              f"mare={d['mean_abs_rel_err']:.1%} "
+              f"(the paper's A100 model vs measured spans)")
+
+
 def _serve_cluster(args) -> None:
-    """The ``--servers N`` path: the JAX package's launcher on the port."""
-    device = torch.device(args.device)
+    """The ``--servers N`` and ``--serve`` paths: the JAX package's
+    launcher on the port."""
+    device = resolve_device(args.device)
     cfg = (get_config if args.config == "full" else get_smoke_config)(
         "llama-7b-paper")
     dtype = getattr(torch, args.dtype)
@@ -408,6 +461,12 @@ def _serve_cluster(args) -> None:
         fault_plan = FaultPlan.random_plan(
             args.chaos, horizon=args.duration, n_servers=args.servers)
     dp, tp = (int(v) for v in args.mesh.split(","))
+    tracer = recorder = None
+    if args.trace_out or args.flight_recorder:
+        from repro_torch.obs import FlightRecorder, Tracer, WallClock
+        tracer = Tracer(clock=WallClock())
+        if args.flight_recorder:
+            recorder = FlightRecorder(out_dir=args.flight_recorder)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
         warm_up(cfg, params, weights, bank_mode=args.bank_mode,
@@ -421,7 +480,35 @@ def _serve_cluster(args) -> None:
         access_mode=args.access_mode, prefetch=args.prefetch,
         controller=controller, fault_plan=fault_plan,
         detector_window=args.detector_window,
-        mesh_shape=None if (dp, tp) == (1, 1) else (dp, tp), device=device)
+        mesh_shape=None if (dp, tp) == (1, 1) else (dp, tp), tracer=tracer,
+        flight_recorder=recorder, device=device)
+
+    def spans(report):
+        if args.trace_out:
+            from repro_torch.obs import write_jsonl, write_perfetto
+            writer = (write_jsonl if args.trace_out.endswith(".jsonl")
+                      else write_perfetto)
+            n = writer(tracer, args.trace_out)
+            print(f"trace: {n} spans -> {args.trace_out}")
+        if tracer is not None:
+            print_cost_drift(report)
+        if recorder is not None:
+            print(f"flight_recorder: dumps={recorder.n_dumps} "
+                  f"-> {args.flight_recorder}")
+
+    if args.serve:
+        from .server import run_gateway
+        host, _, port = args.serve.rpartition(":")
+        report = run_gateway(cluster, host or "127.0.0.1", int(port),
+                             rate=args.rate, max_inflight=args.max_inflight,
+                             announce=lambda s: print(s, flush=True))
+        print(f"served={report.completed()} "
+              f"timed_out={report.timed_out} "
+              f"registered={report.registered} "
+              f"unregistered={report.unregistered}")
+        spans(report)
+        print("gateway drained OK")
+        return
     trace = build_cluster_trace(adapters, cfg, args.requests, prompt_lens,
                                 args.max_new, args.duration, args.seed)
     report = (profiled(lambda: cluster.run(trace), device) if args.profile
@@ -479,10 +566,11 @@ def _serve_cluster(args) -> None:
               f"final_servers={report.final_servers} "
               f"gpu_seconds={report.gpu_seconds:.1f} "
               f"drift_events={len(report.drift_events)}")
+    spans(report)
     print("cluster drained OK")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="full", choices=["full", "smoke"])
     ap.add_argument("--bank-mode", default="padded",
@@ -551,7 +639,25 @@ def main():
     cl.add_argument("--duration", type=float, default=6.0,
                     help="seconds the trace's arrivals span")
     cl.add_argument("--rebalance-period", type=float, default=1.5)
-    args = ap.parse_args()
+    cl.add_argument("--serve", default=None, metavar="HOST:PORT",
+                    help="serve the cluster over the streaming HTTP gateway "
+                         "until SIGTERM instead of replaying a trace "
+                         "(2 servers unless --servers is given)")
+    cl.add_argument("--rate", type=float, default=None,
+                    help="per-tenant admission rate (requests/s) with "
+                         "--serve; unset = unlimited")
+    cl.add_argument("--max-inflight", type=int, default=None,
+                    help="per-tenant concurrent-request cap with --serve")
+    cl.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the run's spans: .jsonl one span a line, "
+                         "else a Perfetto JSON document")
+    cl.add_argument("--flight-recorder", default=None, metavar="DIR",
+                    help="dump the recent spans (and the controller's "
+                         "inputs) to DIR on SLO violations and scale "
+                         "events")
+    args = ap.parse_args(argv)
+    if args.serve and args.servers is None:
+        args.servers = 2
     if args.servers is not None:
         _serve_cluster(args)
         return

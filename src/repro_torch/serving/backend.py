@@ -14,8 +14,12 @@ class: ``device`` (default ``"cuda"``) goes to every engine;
 ``lora_kernel`` defaults to the port's ``"sgmv"``; ``mesh_shape`` and
 ``page_pool_factory`` are refused (not ported); ``memory_profile``
 reports the bytes of the bank the engine holds, which is built in the
-params' dtype (half the JAX package's fp32 bytes at bf16). The simulated
-substrate (``SimBackend``) is not ported yet.
+params' dtype (half the JAX package's fp32 bytes at bf16).
+
+``SimBackend`` is a copy of the JAX package's discrete-event substrate
+(``SimServer`` + the ``ServerModel`` cost model of the paper's A100
+fleet). It runs on the host by nature, on virtual time: a cost model,
+not a device path.
 """
 from __future__ import annotations
 
@@ -142,6 +146,220 @@ class ServingBackend(Protocol):
 
 
 # ----------------------------------------------------------------------
+class SimBackend:
+    """Discrete-event substrate over ``SimServer`` + ``ServerModel``."""
+
+    realtime = False
+
+    def __init__(self, n_servers: int, server_model=None,
+                 timeout: float = 120.0,
+                 adapter_nbytes: Optional[Dict[str, int]] = None,
+                 bank_mode: str = "padded", decode_block: int = 1,
+                 mesh_shape: Optional[tuple] = None):
+        from repro_torch.cluster.costmodel import ServerModel
+        from repro_torch.cluster.server import SimServer
+        self.n_servers = n_servers
+        self.bank_mode = bank_mode
+        self.decode_block = decode_block
+        self.mesh_shape = mesh_shape
+        if server_model is None:
+            # mesh-sharded servers: tp follows the mesh's "model" extent
+            # and iteration times include the explicit ICI terms
+            server_model = ServerModel(mesh_shape=mesh_shape,
+                                       tp=mesh_shape[-1]) \
+                if mesh_shape else ServerModel()
+        self.model = server_model
+        self.servers = [SimServer(i, self.model, bank_mode=bank_mode,
+                                  decode_block=decode_block)
+                        for i in range(n_servers)]
+        self.timeout = timeout
+        self._nbytes = adapter_nbytes or {}
+        self._hosted: List[Dict[str, int]] = [{} for _ in range(n_servers)]
+        self._remote: List[set] = [set() for _ in range(n_servers)]
+        self._inflight: List[ServeRequest] = []
+        self._completed: List[ServeRequest] = []
+        self._timed_out: List[ServeRequest] = []
+        self._util_prev: Dict[int, tuple] = {}
+        self.failed: set = set()
+        self.tracer = None
+
+    def set_tracer(self, tracer) -> None:
+        """Attach an ``obs.Tracer``; servers emit iteration spans on the
+        virtual clock (applies to servers added later too)."""
+        self.tracer = tracer
+        for s in self.servers:
+            s.tracer = tracer
+
+    def start(self) -> None:
+        pass
+
+    def flush_spans(self) -> None:
+        """Emit any staged (coalesced) decode spans — called before a
+        report/snapshot reads the tracer, so span totals and drift
+        cover every iteration executed so far."""
+        for s in self.servers:
+            s.flush_spans()
+
+    def submit(self, server_id: int, req: ServeRequest,
+               now: float) -> None:
+        req.server = server_id
+        req.ready = now + req.fetch_latency
+        self.servers[server_id].enqueue(req)
+        self._inflight.append(req)
+
+    def step(self, now: float) -> None:
+        for sid, s in enumerate(self.servers):
+            if sid in self.failed:
+                continue   # fail-stop: stranded work neither runs
+            for r in list(s.waiting):   # nor times out — it recovers
+                if now - r.arrival > self.timeout:
+                    s.waiting.remove(r)
+                    self._inflight.remove(r)
+                    self._timed_out.append(r)
+            if s.busy_until <= now + 1e-12 and s.has_work(now):
+                s.step(now)
+            s.finished.clear()   # completions flow via _completed here
+        still = []
+        for r in self._inflight:
+            (self._completed if r.finish >= 0 else still).append(r)
+        self._inflight = still
+
+    def next_event_time(self, now: float) -> Optional[float]:
+        ts = [t for sid, s in enumerate(self.servers)
+              if sid not in self.failed
+              for t in (s.next_event_time(now),) if t is not None]
+        return min(ts) if ts else None
+
+    def wall_now(self) -> float:
+        raise RuntimeError("SimBackend has no wall clock; virtual time "
+                           "is driven by the cluster facade")
+
+    def drain_completed(self) -> List[ServeRequest]:
+        done, self._completed = self._completed, []
+        return done
+
+    def drain_timed_out(self) -> List[ServeRequest]:
+        out, self._timed_out = self._timed_out, []
+        return out
+
+    def live_requests(self) -> List[ServeRequest]:
+        return list(self._inflight)
+
+    def pending(self) -> int:
+        return len(self._inflight)
+
+    def server_load(self, server_id: int, now: float) -> float:
+        return self.servers[server_id].estimated_work(now)
+
+    def queue_depth(self, server_id: int) -> float:
+        return float(len(self.servers[server_id].waiting))
+
+    def utilization(self, server_id: int, now: float) -> float:
+        """Busy fraction since the previous call for this server."""
+        s = self.servers[server_id]
+        t0, b0 = self._util_prev.get(server_id, (0.0, 0.0))
+        self._util_prev[server_id] = (now, s.busy_time)
+        if now <= t0:
+            return 0.0
+        return min(1.0, max(0.0, (s.busy_time - b0) / (now - t0)))
+
+    def load_adapters(self, server_id: int,
+                      adapter_ranks: Dict[str, int]) -> None:
+        self._hosted[server_id].update(adapter_ranks)
+        self._remote[server_id] -= set(adapter_ranks)
+
+    def load_adapter_remote(self, server_id: int, adapter_id: str,
+                            rank: int, peer_server: int) -> None:
+        # virtual substrate: the cost model charges the GDR streaming
+        # tax via req.remote_penalty; here we just track residency
+        self._hosted[server_id][adapter_id] = rank
+        self._remote[server_id].add(adapter_id)
+
+    def promote_adapter(self, server_id: int, adapter_id: str) -> None:
+        self._remote[server_id].discard(adapter_id)
+
+    def evict_adapter(self, server_id: int, adapter_id: str) -> bool:
+        # refuse while the adapter still has requests on this server
+        if any(r.adapter_id == adapter_id and r.server == server_id
+               for r in self._inflight):
+            return False
+        self._remote[server_id].discard(adapter_id)
+        return self._hosted[server_id].pop(adapter_id, None) is not None
+
+    def hosted_adapters(self, server_id: int) -> Dict[str, int]:
+        return dict(self._hosted[server_id])
+
+    def add_server(self) -> int:
+        from repro_torch.cluster.server import SimServer
+        sid = self.n_servers
+        self.n_servers += 1
+        self.servers.append(SimServer(sid, self.model,
+                                      bank_mode=self.bank_mode,
+                                      decode_block=self.decode_block,
+                                      tracer=self.tracer))
+        self._hosted.append({})
+        self._remote.append(set())
+        return sid
+
+    def retire_server(self, server_id: int) -> None:
+        s = self.servers[server_id]
+        if s.waiting or s.running:
+            raise RuntimeError(f"retire of sim server {server_id} with "
+                               f"work still queued")
+        self._hosted[server_id].clear()
+        self._remote[server_id].clear()
+
+    # -- fault plane ----------------------------------------------------
+    def fail_server(self, server_id: int) -> None:
+        self.failed.add(server_id)
+
+    def drain_failed(self, server_id: int) -> List[ServeRequest]:
+        s = self.servers[server_id]
+        stranded = list(s.waiting) + list(s.running)
+        s.waiting.clear()
+        s.running.clear()
+        s.finished.clear()
+        s.busy_until = 0.0
+        gone = {id(r) for r in stranded}
+        self._inflight = [r for r in self._inflight
+                          if id(r) not in gone]
+        self._hosted[server_id].clear()
+        self._remote[server_id].clear()
+        return stranded
+
+    def restore_server(self, server_id: int) -> None:
+        self.failed.discard(server_id)
+        self._util_prev.pop(server_id, None)
+
+    def server_alive(self, server_id: int) -> bool:
+        return server_id not in self.failed
+
+    def cancel_request(self, req_id: int) -> Optional[ServeRequest]:
+        for r in self._inflight:
+            if r.req_id == req_id:
+                s = self.servers[r.server]
+                s.waiting[:] = [q for q in s.waiting if q is not r]
+                s.running[:] = [q for q in s.running if q is not r]
+                self._inflight = [q for q in self._inflight
+                                  if q is not r]
+                return r
+        return None
+
+    def memory_profile(self) -> List[Dict[str, float]]:
+        out = []
+        for sid, hosted in enumerate(self._hosted):
+            out.append({
+                "n_adapters": len(hosted),
+                "max_rank": max(hosted.values()) if hosted else 0,
+                "adapter_bytes": sum(self._nbytes.get(a, 0)
+                                     for a in hosted),
+                "bank_mode": self.bank_mode,
+                "n_remote": len(self._remote[sid]),
+            })
+        return out
+
+
+# ----------------------------------------------------------------------
 class EngineBackend:
     """Real-engine substrate: one placement-aware ``ServingEngine`` per
     server, created lazily with the adapter subset first loaded onto it.
@@ -188,6 +406,19 @@ class EngineBackend:
         self._t0 = time.monotonic()
         self._timed_out: List[ServeRequest] = []
         self.failed: set = set()
+        self.tracer = None
+
+    def set_tracer(self, tracer) -> None:
+        """Attach an ``obs.Tracer``; engines (built lazily) emit
+        iteration spans on the shared wall clock."""
+        self.tracer = tracer
+        for eng in self.engines:
+            if eng is not None:
+                eng.tracer = tracer
+
+    def flush_spans(self) -> None:
+        """Nothing to emit: an engine records each iteration's span as
+        the iteration ends, after its host sync, and stages none."""
 
     # -- clock ----------------------------------------------------------
     def start(self) -> None:
@@ -283,7 +514,8 @@ class EngineBackend:
                 seed=self.seed, bank_mode=self.bank_mode,
                 decode_block=self.decode_block,
                 lora_kernel=self.lora_kernel, clock=self.wall_now,
-                server_id=server_id, device=self.device)
+                tracer=self.tracer, server_id=server_id,
+                device=self.device)
         else:
             self.engines[server_id].load_adapters(adapter_ranks)
 

@@ -41,10 +41,8 @@ This is the unified serving API the launcher, gateway, examples, and
 benchmarks build on.
 
 PyTorch port: a copy of the JAX package's ``serving/cluster.py`` over the
-port's own copies of ``core/``, ``cluster/``, ``controlplane/`` and
-``faults/``. One difference: the span layer (``obs/``) is not ported, so
-``tracer`` and ``flight_recorder`` stay in the signature and raise when
-given.
+port's own copies of ``core/``, ``cluster/``, ``controlplane/``,
+``faults/`` and ``obs/``.
 """
 from __future__ import annotations
 
@@ -205,10 +203,6 @@ class LoRAServeCluster:
                  tracer=None, flight_recorder=None,
                  fault_plan=None, detector_window: float = 0.5,
                  durable_ssd: bool = False, retry_policy=None):
-        if tracer is not None or flight_recorder is not None:
-            raise NotImplementedError(
-                "tracer/flight_recorder: the span layer (obs/) is not "
-                "ported yet (ROADMAP A4)")
         if operating_points is None:
             from repro_torch.cluster.costmodel import (ServerModel,
                                                        profile_operating_points)
@@ -300,6 +294,22 @@ class LoRAServeCluster:
         self._slo_bad = False
         self._tracer_adv = None
         self._record_spans = None
+        if tracer is not None:
+            from repro_torch.cluster.costmodel import ServerModel
+            from repro_torch.obs import CostModelDrift, record_request_spans
+            self._record_spans = record_request_spans
+            model = (server_model
+                     or getattr(backend, "model", None) or ServerModel())
+            self.cost_drift = CostModelDrift(model)
+            tracer.add_listener(self.cost_drift.observe)
+            if flight_recorder is not None:
+                tracer.add_listener(flight_recorder.observe)
+            if hasattr(backend, "set_tracer"):
+                backend.set_tracer(tracer)
+            self.orch.store.tracer = tracer
+            # virtual substrate: keep the tracer's event clock at the
+            # facade's notion of now (cheap no-op for wall clocks)
+            self._tracer_adv = getattr(tracer.clock, "advance", None)
         self._seed_backend()
         # running peaks across rebalances (the store GCs lazily, so the
         # end-of-run state understates what a server actually held)

@@ -14,7 +14,6 @@ import copy
 import dataclasses
 import random
 import sys
-import weakref
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_jax_side import JaxSeededBackend
 from repro.cluster import NetworkModel as JNetworkModel
 from repro.configs import get_smoke_config
 from repro.core import AdapterInfo as JAdapterInfo
@@ -29,7 +29,6 @@ from repro.core import ServeRequest as JServeRequest
 from repro.faults import FaultPlan as JFaultPlan
 from repro.launch.serve import build_trace as jax_build_trace
 from repro.models import model as JM
-from repro.serving import EngineBackend as JEngineBackend
 from repro.serving import LoRAServeCluster as JCluster
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JEngine
@@ -63,40 +62,6 @@ def setup():
     jw = {aid: jax.tree.map(jnp.asarray, x) for aid, x in w.items()}
     tw = {aid: bridge.adapter_weights_from_numpy(x) for aid, x in w.items()}
     return cfg, jp, tp, jw, tw
-
-
-class JaxSeededBackend(JEngineBackend):
-    """The JAX ``EngineBackend`` with the weights of every hosted adapter
-    installed again after each engine build or bank rebuild (a rebuilt
-    bank's B is zero), as ``launch.serve.SeededWeightsBackend`` does on
-    the port; an adapter just read from a peer keeps the peer's rows."""
-
-    def __init__(self, *args, weights, **kw):
-        self.weights = weights
-        self._installed = weakref.WeakKeyDictionary()
-        super().__init__(*args, **kw)
-
-    def _reinstall(self, sid, remote=None):
-        eng = self.engines[sid]
-        if eng is None or self._installed.get(eng) == eng.bank_rebuilds:
-            return
-        for aid, r in eng.adapter_ranks.items():
-            if aid != remote or aid not in self._remote[sid]:
-                eng.install_adapter(aid, r, self.weights[aid])
-        self._installed[eng] = eng.bank_rebuilds
-
-    def load_adapters(self, sid, ranks):
-        super().load_adapters(sid, ranks)
-        self._reinstall(sid)
-
-    def load_adapter_remote(self, sid, aid, rank, peer):
-        super().load_adapter_remote(sid, aid, rank, peer)
-        self._reinstall(sid, remote=aid)
-
-    def evict_adapter(self, sid, aid):
-        out = super().evict_adapter(sid, aid)
-        self._reinstall(sid)
-        return out
 
 
 def _clusters(setup, adapters, *, max_batch, max_len, seed,
@@ -290,14 +255,6 @@ def test_engine_backend_refusals(setup, kw, exc, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(exc):
         EngineBackend(setup[0], setup[2], 2, **kw)
-
-
-@pytest.mark.parametrize("kw", [{"tracer": object()},
-                                {"flight_recorder": object()}])
-def test_cluster_refuses_the_span_layer(setup, kw):
-    be = EngineBackend(setup[0], setup[2], 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="obs"):
-        LoRAServeCluster(be, launch.cluster_adapters(2), **kw)
 
 
 def test_cluster_trace_is_the_jax_launchers(setup):
