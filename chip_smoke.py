@@ -137,6 +137,38 @@ Phases (any failure raises; the script then exits non-zero):
                ``python -m repro_torch.launch.serve --serve 127.0.0.1:0
                --config full --trace-out F``, which writes the span trace
                and prints the ``costmodel[phase]`` lines.
+ 10. moe     — after every earlier phase has freed its weights, the MoE
+               family and the dense configs at full width. (a)
+               deepseek-v2-lite-16b, 27 layers (MLA attention, 64 experts
+               top-6 plus 2 shared), bf16 weights from a seed (the router
+               fp32), fp32 MLA cache: phase 2's trace (8 requests over the
+               5 adapters, prompts 4 x 64, 2 x 128 and 2 x 1000, 16 new
+               tokens, max batch 8), padded and bucketed, decode blocks 1
+               and 4: every run emits the same tokens, B1/B2 launch 3 x
+               27 times a model pass (MLA calls q, k and o) and B5 never;
+               the first prefill group's bf16 logits equal bit for bit
+               across the banks and lie within 5e-2 of the largest logit
+               of an fp32 einsum run on the same weights (upcast in
+               place). (b) Every B1 and B2 call the runs recorded at each
+               width (d 2048; d_out 3072, 576, 2048; a decode step and
+               the 2 x 1000 group) and B3a/B3b on B1's, against their
+               plain versions (bf16 and fp32), timed and bounded as in
+               phase 3, each with its gathered-bmm yardstick; on the
+               dispatcher calls B3a then B3b == B1, and B2 at the plan ==
+               the host loop == B1 on the zero-padded bank, bit for bit.
+               (c) llama4-scout-17b-a16e at full width and 8 of its 48
+               layers (GQA 40/8, 16 experts top-1 plus 1 shared), 4
+               requests, padded and bucketed: the same checks, B1/B2 at d
+               5120, d_out 5120 and 1024. (d) ``python -m
+               repro_torch.launch.serve --arch deepseek-v2-lite-16b
+               --config full --servers 2 --bank-mode bucketed
+               --decode-block 4`` exits 0 with ``cluster drained OK``. (e)
+               stablelm-1.6b at full width and depth, 4 requests, padded
+               and bucketed; its MHA prefill runs B5 at head dim 64,
+               held against ``flash_mha_plain`` and timed beside
+               ``scaled_dot_product_attention`` on the 1000-token group.
+               Each run logs TTFT, TBT, tok/s and peak memory; the
+               kernels line adds its launches.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -237,6 +269,17 @@ def _cast(a, dtype):
     return a
 
 
+def _call_widths(name, args):
+    """(d, d_out) of an SGMV call's input and output rows (the bank's B
+    gives d_out: ``args[2]`` of B1 and ``sgmv_fused``, the first bucket's
+    of B2 and ``sgmv_bucketed_fused``); (hd,) of a B5 call."""
+    x = args[0]
+    if name == "flash_mha":
+        return (x.shape[-1],)
+    B = args[1][0][1] if isinstance(args[1], (list, tuple)) else args[2]
+    return (x.shape[1], B.shape[-1])
+
+
 class MainPathCalls:
     """Stands in, while it is entered, for the names under which the port
     calls the kernel wrappers B1/B2 and ``scatter_rows`` (``kernels/
@@ -249,7 +292,7 @@ class MainPathCalls:
     rows: a decode step) and largest (a prefill group), with the ``dest``
     that laid out the last SGMV call's tokens."""
 
-    def __init__(self, tp=False):
+    def __init__(self, tp=False, widths=False):
         from repro_torch.kernels import ops
         from repro_torch.lora import batched
         from repro_torch.models import attention
@@ -265,7 +308,11 @@ class MainPathCalls:
                       (batched, "sgmv_bucketed_fused"),
                       (attention, "flash_mha")]
         self.orig = {}
-        self.calls = {}          # (name, layout) -> (args, kwargs, dest)
+        # (name, layout) -> (args, kwargs, dest); with ``widths``, keyed
+        # (name, layout) + ``_call_widths``: a smallest and a largest call
+        # at each width
+        self.widths = widths
+        self.calls = {}
         self._rows = {}
         self._dest = None
 
@@ -291,14 +338,15 @@ class MainPathCalls:
             x = args[0]
             rows = x.shape[0] * x.shape[2] if name == "flash_mha" \
                 else x.shape[0]
+            extra = _call_widths(name, args) if self.widths else ()
             for layout, keep in (("decode", lambda a, b: a < b),
                                  ("prefill", lambda a, b: a > b)):
-                kept = self._rows.get((name, layout))
+                key = (name, layout) + extra
+                kept = self._rows.get(key)
                 if kept is None or keep(rows, kept):
-                    self._rows[(name, layout)] = rows
+                    self._rows[key] = rows
                     dest = None if self._dest is None else self._dest.clone()
-                    self.calls[(name, layout)] = (_copy(args), _copy(kw),
-                                                  dest)
+                    self.calls[key] = (_copy(args), _copy(kw), dest)
             return fn(*args, **kw)
         return call
 
@@ -561,10 +609,11 @@ def _b1_splits_and_yardstick(calls, flush):
 
 
 def _yardstick(kid, layout, args, kw, dest, flush):
-    """The yardstick of B2, B3a, B3b, B4a or B4b on one of its bf16 calls,
-    timed only (the port never calls it): the blocks that hold tokens,
-    their adapters' weights gathered (``A[aid]``, ``B[aid]``), then
-    ``torch.bmm`` of the token blocks: B3a ``x @ A``, B3b ``h @ B``; per
+    """The yardstick of B1, B2, B3a, B3b, B4a or B4b on one of its bf16
+    calls, timed only (the port never calls it): the blocks that hold
+    tokens, their adapters' weights gathered (``A[aid]``, ``B[aid]``), then
+    ``torch.bmm`` of the token blocks: B1 ``(x @ A) @ B``, B3a ``x @ A``,
+    B3b ``h @ B``; per
     rank bucket (blocks sorted on the host first), B4a ``x @ A_b``, B4b
     ``h[:, :r_b] @ B_b``, B2 ``(x @ A_b) @ B_b``."""
     bt = _block_t(kw)
@@ -572,12 +621,18 @@ def _yardstick(kid, layout, args, kw, dest, flush):
     nb = x.shape[0] // bt
     xb = x[:nb * bt].view(nb, bt, x.shape[1])
     used = sorted(set((dest.long() // bt).tolist()))
-    if kid in ("B3a", "B3b"):
+    if kid in ("B1", "B3a", "B3b"):
         W, ba = args[1], args[-1]
         blk = torch.tensor(used, device=x.device)
         idx = ba[blk].long()
-        call = lambda: torch.bmm(xb[blk], W[idx])            # noqa: E731
-        what = "a gather and a library call"
+        if kid == "B1":
+            B = args[2]
+            call = lambda: torch.bmm(torch.bmm(xb[blk], W[idx]),  # noqa
+                                     B[idx])
+            what = "two gathers and two library calls"
+        else:
+            call = lambda: torch.bmm(xb[blk], W[idx])        # noqa: E731
+            what = "a gather and a library call"
     else:
         bkt, row = args[2].tolist(), args[3]
         groups = []
@@ -681,9 +736,35 @@ def phase_kernels(dev, calls):
 # ---------------------------------------------------------------------------
 
 
+def _path_launches(cfg, mode, passes, groups):
+    """What an engine's runs launch: the mode's SGMV kernel once per LoRA
+    call of a model pass (MLA calls q, k and o: its v adapter is never
+    applied), B5 once a layer per prefill group of an MHA model without a
+    window; nothing else."""
+    calls = 3 if cfg.mla is not None else len(cfg.lora.targets)
+    want = {kid: 0 for kid in KERNELS}
+    want[{"padded": "B1", "bucketed": "B2"}[mode]] = \
+        calls * cfg.n_layers * passes
+    if cfg.mla is None and cfg.n_heads == cfg.n_kv_heads \
+            and not cfg.sliding_window:
+        want["B5"] = cfg.n_layers * groups
+    return want
+
+
+def _serve_trace(cfg, n, dev):
+    """Phase 2's trace at ``n`` requests: adapters of ranks 8..128 in
+    turn, prompts 64, 128, 64, 1000 in turn, 16 new tokens each; bf16
+    adapter weights at each target's widths (phase 2's seed)."""
+    from repro_torch.launch.serve import adapter_weights, build_trace
+    trace = build_trace(cfg, n, (64, 128, 64, 1000), 16, seed=0)
+    ranks = {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in trace}
+    return trace, ranks, adapter_weights(cfg, ranks, dtype=torch.bfloat16,
+                                         device=dev, seed=3)
+
+
 def phase_engine(dev):
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import adapter_weights, build_trace, serve
+    from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
     cfg = get_config("llama-7b-paper")
     t0 = time.monotonic()
@@ -695,13 +776,9 @@ def phase_engine(dev):
         f"{time.monotonic() - t0:.1f}s")
     # prompts 64, 128, 64, 1000 in turn: groups of 4 x 64, 2 x 128 and
     # 2 x 1000 tokens, the last over adapters of ranks 64 and 32
-    trace = build_trace(cfg, 8, (64, 128, 64, 1000), 16, seed=0)
-    ranks = {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in trace}
-    weights = adapter_weights(cfg, ranks, dtype=torch.bfloat16, device=dev,
-                              seed=3)
+    trace, _, weights = _serve_trace(cfg, 8, dev)
     wrappers = _wrappers()
     sgmv_kid = {"padded": "B1", "bucketed": "B2"}
-    per_launch = len(cfg.lora.targets) * cfg.n_layers
     outputs, banks = {}, {}
     # the main path: counts at 0 just before, read just after; the
     # recorder copies the arguments of a few calls for phases 3 and 4
@@ -719,10 +796,9 @@ def phase_engine(dev):
                 torch.cuda.synchronize()
                 grew = {kid: k.launches - before[kid]
                         for kid, k in wrappers.items()}
-                want = {kid: 0 for kid in wrappers}
-                want[sgmv_kid[mode]] = per_launch * (
-                    eng.prefill_dispatches + eng.decode_iterations)
-                want["B5"] = cfg.n_layers * eng.prefill_dispatches
+                want = _path_launches(
+                    cfg, mode, eng.prefill_dispatches + eng.decode_iterations,
+                    eng.prefill_dispatches)
                 assert all(len(r.output) == 16 for r in reqs), \
                     [len(r.output) for r in reqs]
                 assert all(0 <= t < cfg.vocab_size for r in reqs
@@ -826,19 +902,27 @@ def _first_logits(cfg, eng, kernel="sgmv", mesh=None):
     return _group_logits(cfg, eng, _tp_trace(cfg), 64, kernel, mesh)
 
 
+def _fp32_engine(cfg, params, ranks, weights, max_len):
+    """An fp32 engine on the bf16 weights upcast (``params`` converted in
+    place) and the adapter weights upcast, einsum LoRA on a padded bank."""
+    from repro_torch.serving import ServingEngine
+    params.float()
+    eng = ServingEngine(cfg, params, ranks, max_batch=8, max_len=max_len,
+                        bank_mode="padded", lora_kernel="einsum",
+                        device=params.embed.device)
+    for aid, w in weights.items():
+        eng.install_adapter(aid, ranks[aid], {
+            t: {k: v.float() for k, v in ab.items()} for t, ab in w.items()})
+    return eng
+
+
 def _fp32_first_logits(cfg, params, dev):
     """``_first_logits`` in fp32 on the bf16 weights upcast: ``params``
     (converted in place) and phase 2's adapter weights, einsum LoRA on a
     padded bank. How far a bf16 pass lies from it is the bf16 noise floor
     that phase 6's tp = 2 logits are held to."""
-    from repro_torch.serving import ServingEngine
-    params.float()
     ranks, weights = _tp_weights(cfg, dev)
-    eng = ServingEngine(cfg, params, ranks, max_batch=4, max_len=72,
-                        bank_mode="padded", lora_kernel="einsum", device=dev)
-    for aid, w in weights.items():
-        eng.install_adapter(aid, ranks[aid], {
-            t: {k: v.float() for k, v in ab.items()} for t, ab in w.items()})
+    eng = _fp32_engine(cfg, params, ranks, weights, 72)
     return _first_logits(cfg, eng, kernel="einsum")
 
 
@@ -1285,10 +1369,7 @@ def _cluster_launches(cfg, engines, mode, launches):
     Returns (model passes, prefill groups)."""
     passes = sum(e.prefill_dispatches + e.decode_iterations for e in engines)
     groups = sum(e.prefill_dispatches for e in engines)
-    want = {kid: 0 for kid in KERNELS}
-    want[{"padded": "B1", "bucketed": "B2"}[mode]] = (
-        len(cfg.lora.targets) * cfg.n_layers * passes)
-    want["B5"] = cfg.n_layers * groups
+    want = _path_launches(cfg, mode, passes, groups)
     assert launches == want, (launches, want)
     return passes, groups
 
@@ -1733,6 +1814,313 @@ def phase_gateway(dev, cfg, params, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family
+# ---------------------------------------------------------------------------
+DEEPSEEK = "deepseek-v2-lite-16b"
+LLAMA4 = "llama4-scout-17b-a16e"
+LLAMA4_LAYERS = 8                     # 48 layers need 215 GB in bf16
+STABLELM = "stablelm-1.6b"
+
+
+def _moe_engine_runs(dev, cfg, params, trace, weights, runs, smi, rec):
+    """Serve ``trace`` once per (bank mode, decode_block) in ``runs``,
+    every count at 0 just before each run and read just after; every run
+    emits the same tokens and launches what ``_path_launches`` says.
+    Returns (the summed launches, each mode's last engine)."""
+    from repro_torch.launch.serve import serve
+    wrappers = _wrappers()
+    total = {kid: 0 for kid in KERNELS}
+    outputs, engines = {}, {}
+    for mode, db in runs:
+        for k in wrappers.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        with rec:
+            eng, reqs, s = serve(cfg, params, trace, weights=weights,
+                                 bank_mode=mode, lora_kernel="sgmv",
+                                 decode_block=db, max_batch=8, device=dev)
+            torch.cuda.synchronize()
+        grew = {kid: k.launches for kid, k in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = _path_launches(cfg, mode, eng.prefill_dispatches
+                              + eng.decode_iterations, eng.prefill_dispatches)
+        assert all(len(r.output) == 16 for r in reqs), \
+            [len(r.output) for r in reqs]
+        assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.output)
+        assert grew == want, (cfg.name, mode, db, grew, want)
+        for kid, n in grew.items():
+            total[kid] += n
+        outputs[(mode, db)] = [r.output for r in reqs]
+        engines[mode] = eng
+        log(f"moe engine {cfg.name} layers={cfg.n_layers} mode={mode} "
+            f"decode_block={db} | {smi}: finished={s['finished']}/"
+            f"{len(trace)} prefill_groups={eng.prefill_dispatches} "
+            f"decode_steps={eng.decode_iterations} decode_dispatches="
+            f"{eng.decode_dispatches} launches "
+            f"{ {k: v for k, v in grew.items() if v} }"
+            f" p50_ttft_ms={s['p50_ttft'] * 1e3:.2f}"
+            f" p95_ttft_ms={s['p95_ttft'] * 1e3:.2f}"
+            f" mean_tbt_ms={s['mean_tbt'] * 1e3:.3f}"
+            f" decode_tok_s={s['decode_tok_s']:.1f}"
+            f" wall_s={s['wall_s']:.3f} peak_gb={peak / 1e9:.2f}")
+    first = next(iter(outputs.values()))
+    for key, out in outputs.items():
+        assert out == first, f"{cfg.name}: tokens of {key} differ"
+    log(f"moe engine {cfg.name}: {len(outputs)} runs ({sorted(outputs)}) "
+        f"emit the same tokens; padded == bucketed bit for bit; first "
+        f"request {first[0]}")
+    return total, engines
+
+
+def _init_model(cfg, dev):
+    from repro_torch.models import model as M
+    t0 = time.monotonic()
+    params = M.init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    par_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"moe init {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+        f"params={n_par} ({par_bytes / 1e9:.2f} GB, bf16, the router fp32) "
+        f"in {time.monotonic() - t0:.1f}s")
+    return params
+
+
+def _lora_widths(cfg):
+    """(d, d_out) of every LoRA call of a model pass: each target's own
+    widths (MLA calls q, k and o)."""
+    from repro_torch.lora.adapter import _target_in_dim, _target_out_dim
+    return sorted({(_target_in_dim(cfg, t), _target_out_dim(cfg, t))
+                   for t in cfg.lora.targets
+                   if cfg.mla is None or t != "v"})
+
+
+class Routing:
+    """Stands in for ``models.ffn.moe_topk`` while entered. Recording, it
+    keeps every call's expert ids (N, K) in call order; replaying ``ids``
+    (an earlier recording of the same model on the same tokens), each
+    call takes the recorded experts in place of its own top k and weighs
+    them by its own probabilities, renormalised: a run in another type
+    then routes every token as the recorded run did, and the two differ
+    by their arithmetic alone."""
+
+    def __init__(self, ids=None):
+        from repro_torch.models import ffn
+        self.ffn, self.replay, self.ids = ffn, ids, []
+
+    def __enter__(self):
+        self.orig = self.ffn.moe_topk
+
+        def topk(cfg, router, xf):
+            probs, topw, topi = self.orig(cfg, router, xf)
+            if self.replay is not None:
+                topi = self.replay[len(self.ids)]
+                topw = probs.gather(-1, topi)
+                topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.ids.append(topi)
+            return probs, topw, topi
+        self.ffn.moe_topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self.ffn.moe_topk = self.orig
+
+
+def _routing_flips(a, b):
+    """Tokens whose expert set differs between two recordings, over all
+    layers, and the decisions (token x layer) in all."""
+    flips = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                for x, y in zip(a, b))
+    return flips, sum(x.shape[0] for x in a)
+
+
+def _moe_kernel_checks(dev, model, calls, results):
+    """Phase 10 (b)/(c): every B1 and B2 call the path recorded, at each
+    width and layout, against its plain version (bf16 and fp32), timed,
+    bounded, with its gathered-bmm yardstick; B3a/B3b on B1's calls, the
+    same; on the dispatcher calls, the unfused pair == B1 and B2 at the
+    plan == the host loop == B1 on the zero-padded bank, bit for bit."""
+    from repro_torch.kernels import ops, sgmv
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for key in sorted(k for k in calls if k[0] in ("sgmv_fused_blocks",
+                                                   "sgmv_multibank_blocks")):
+        name, layout, d, d_out = key
+        args, kw, dest = calls[key]
+        kid = "B1" if name == "sgmv_fused_blocks" else "B2"
+        label = f"{model}-{layout}-d{d}-o{d_out}"
+        _check_and_time(kid, label, args, kw, dest, flush, results)
+        _yardstick(kid, label, args, kw, dest, flush)
+        if kid == "B1":
+            x_pad, A, B, ba = args
+            h = sgmv.sgmv_shrink_blocks_ref(x_pad, A, ba, **kw)
+            for sub, sargs, skw in (
+                    ("B3a", (x_pad, A, ba), kw),
+                    ("B3b", (h, B, ba), {"block_t": _block_t(kw)})):
+                _check_and_time(sub, label, sargs, skw, dest, flush, results)
+                _yardstick(sub, label, sargs, skw, dest, flush)
+    del flush
+    for key in sorted(k for k in calls if k[0] in ("sgmv_fused",
+                                                   "sgmv_bucketed_fused")):
+        name, layout, d, d_out = key
+        args, kw, _ = calls[key]
+        label = f"{model}-{layout}-d{d}-o{d_out}"
+        if name == "sgmv_bucketed_fused":
+            _bucketed_identities(label, args, kw)
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            cargs = _cast(args, dtype)
+            assert torch.equal(ops.sgmv_fused(*cargs, **kw),
+                               ops.sgmv(*cargs, **kw)), (label, dtype)
+        log(f"unfused: {label} sgmv_fused call x={tuple(args[0].shape)}: "
+            "B3a then B3b == B1 bit for bit, bf16 and fp32")
+
+
+def _widths_seen(calls, name):
+    return sorted({k[2:] for k in calls if k[0] == name})
+
+
+def _moe_deepseek(dev, smi, results):
+    """Phase 10 (a) and (b): deepseek-v2-lite-16b at full width and depth."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DEEPSEEK)
+    params = _init_model(cfg, dev)
+    trace, ranks, weights = _serve_trace(cfg, 8, dev)
+    rec = MainPathCalls(widths=True)
+    launches, engines = _moe_engine_runs(
+        dev, cfg, params, trace, weights,
+        [(m, db) for m in ("padded", "bucketed") for db in (1, 4)], smi, rec)
+    # d 2048; d_out 3072 (q), 576 (k: kv_lora_rank + rope), 2048 (o)
+    seen = _widths_seen(rec.calls, "sgmv_fused_blocks")
+    assert seen == _lora_widths(cfg), seen
+    assert seen == _widths_seen(rec.calls, "sgmv_multibank_blocks")
+    # the first prefill group's bf16 logits: both banks bit for bit, and
+    # against fp32 on the same weights. A router whose k-th and (k+1)-th
+    # experts lie within bf16's rounding of each other picks differently
+    # in the two types, and one token's changed expert moves the rest;
+    # so the fp32 run that is held within phase 6's 5e-2 of the largest
+    # logit takes the bf16 run's experts (``Routing``), and the free fp32
+    # run's distance is printed beside the count of changed choices.
+    with Routing() as bf16_routes:
+        lg = _group_logits(cfg, engines["padded"], trace, 64)
+    assert torch.equal(lg, _group_logits(cfg, engines["bucketed"], trace,
+                                         64))
+    del engines
+    _free()
+    eng = _fp32_engine(cfg, params, ranks, weights, 72)
+    with Routing() as fp32_routes:
+        free = _group_logits(cfg, eng, trace, 64, kernel="einsum")
+    with Routing(bf16_routes.ids):
+        ref = _group_logits(cfg, eng, trace, 64, kernel="einsum")
+    del eng, params
+    _free()
+    flips, decisions = _routing_flips(bf16_routes.ids, fp32_routes.ids)
+    scale = ref.abs().max().item()
+    err = (lg - ref).abs().max().item()
+    err_free = (lg - free).abs().max().item()
+    log(f"moe logits {cfg.name} first prefill group (4 x 64): padded == "
+        f"bucketed bit for bit; bf16 vs fp32 on the same weights and the "
+        f"same experts: max abs diff {err:.4e} of max |logit| {scale:.4f} "
+        f"({err / scale:.3%}; tol 5e-2 of it), argmax agree "
+        f"{(lg.argmax(-1) == ref.argmax(-1)).tolist()}; fp32 "
+        f"routing on its own: {flips} of {decisions} token-layer expert "
+        f"choices differ from bf16's, max abs diff {err_free:.4e} "
+        f"({err_free / scale:.3%}), argmax agree "
+        f"{(lg.argmax(-1) == free.argmax(-1)).tolist()}")
+    assert torch.isfinite(ref).all() and torch.isfinite(free).all()
+    assert err <= 5e-2 * scale, (err, scale)
+    _moe_kernel_checks(dev, "deepseek", rec.calls, results)
+    return launches
+
+
+def _moe_llama4(dev, smi, results):
+    """Phase 10 (c): llama4-scout at full width and 8 layers, 4 requests,
+    padded and bucketed; B1/B2 (and B3a/B3b) at d 5120, d_out 5120 and
+    1024."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LLAMA4), n_layers=LLAMA4_LAYERS)
+    params = _init_model(cfg, dev)
+    trace, _, weights = _serve_trace(cfg, 4, dev)
+    rec = MainPathCalls(widths=True)
+    launches, engines = _moe_engine_runs(
+        dev, cfg, params, trace, weights,
+        [("padded", 4), ("bucketed", 4)], smi, rec)
+    del engines, params
+    _free()
+    # d 5120; d_out 5120 (q, o), 1024 (k, v: 8 kv heads of 128)
+    seen = _widths_seen(rec.calls, "sgmv_fused_blocks")
+    assert seen == _lora_widths(cfg), seen
+    assert seen == _widths_seen(rec.calls, "sgmv_multibank_blocks")
+    _moe_kernel_checks(dev, "llama4", rec.calls, results)
+    return launches
+
+
+def _moe_launcher():
+    """Phase 10 (d): the serve launcher at deepseek-v2-lite-16b full width
+    with 2 servers, as a subprocess: exit 0, ``cluster drained OK``."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    args = ["repro_torch.launch.serve", "--arch", DEEPSEEK, "--config",
+            "full", "--servers", "2", "--bank-mode", "bucketed",
+            "--decode-block", "4"]
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    assert proc.returncode == 0, (proc.returncode, proc.stdout,
+                                  proc.stderr[-4000:])
+    assert lines and lines[-1] == "cluster drained OK", proc.stdout
+    log(f"moe launcher python -m {' '.join(args)}: exit 0 in "
+        f"{time.monotonic() - t0:.1f}s; it printed: {' | '.join(lines)}")
+
+
+def _stablelm(dev, smi, results):
+    """Phase 10 (e): stablelm-1.6b at full width and depth, 4 requests,
+    padded and bucketed: its MHA prefill runs B5 at head dim 64, held
+    against ``flash_mha_plain`` and timed beside
+    ``scaled_dot_product_attention`` on the 1000-token group's call."""
+    from repro_torch.configs import get_config
+    cfg = get_config(STABLELM)
+    hd = cfg.resolved_head_dim
+    params = _init_model(cfg, dev)
+    trace, _, weights = _serve_trace(cfg, 4, dev)
+    rec = MainPathCalls(widths=True)
+    launches, engines = _moe_engine_runs(
+        dev, cfg, params, trace, weights,
+        [("padded", 4), ("bucketed", 4)], smi, rec)
+    del engines, params
+    _free()
+    args, kw, _ = rec.calls[("flash_mha", "prefill", hd)]
+    assert tuple(args[0].shape) == (1, cfg.n_heads, 1000, hd), \
+        args[0].shape
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    _check_and_time("B5", f"stablelm-prefill-hd{hd}", args, kw, None,
+                    flush, results)
+    del flush
+    return launches
+
+
+def phase_moe(dev, smi):
+    """Phase 10. Returns (the launches of its main-path runs, the
+    kernels' results at the new widths)."""
+    results, launches = {}, {kid: 0 for kid in KERNELS}
+    for part in (_moe_deepseek, _moe_llama4):
+        t0 = time.monotonic()
+        for kid, n in part(dev, smi, results).items():
+            launches[kid] += n
+        _free()
+        log(f"phase moe {part.__name__}: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    _moe_launcher()
+    log(f"phase moe launcher: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    for kid, n in _stablelm(dev, smi, results).items():
+        launches[kid] += n
+    _free()
+    log(f"phase moe stablelm: {time.monotonic() - t0:.1f}s")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1791,6 +2179,15 @@ def main() -> int:
     t0 = time.monotonic()
     kres.update(phase_split(dev, cfg, tp_calls, b2_calls))
     log(f"phase split: {time.monotonic() - t0:.1f}s")
+    del tp_calls, b2_calls
+    _free()
+    t0 = time.monotonic()
+    moe_launches, moe_res = phase_moe(dev, smi)
+    kres.update(moe_res)
+    for kid, n in moe_launches.items():
+        launches[kid] += n
+    log(f"phase moe: {time.monotonic() - t0:.1f}s; launches "
+        f"{ {k: v for k, v in moe_launches.items() if v} }")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

@@ -25,7 +25,9 @@ def _t(a, device, dtype=None):
 def params_from_numpy(cfg, tree, *, device="cuda",
                       dtype=torch.float32) -> DenseLM:
     """The JAX param tree of ``models/model.py:init_params`` (blocks
-    stacked on a leading layer axis), as numpy arrays -> a ``DenseLM``."""
+    stacked on a leading layer axis), as numpy arrays -> a ``DenseLM``
+    (dense or MoE, GQA or MLA: the module attributes carry the JAX leaves'
+    names)."""
     dev = resolve_device(device)
     lm = init_params(cfg, 0, dtype=dtype, device=dev)   # then overwritten
     with torch.no_grad():
@@ -37,10 +39,11 @@ def params_from_numpy(cfg, tree, *, device="cuda",
         for i, bp in enumerate(lm.blocks):
             bp.ln1.copy_(_t(blocks["ln1"][i], dev, dtype))
             bp.ln2.copy_(_t(blocks["ln2"][i], dev, dtype))
-            for name, p in bp.attn.named_parameters():
-                p.copy_(_t(blocks["attn"][name][i], dev, dtype))
-            for name, p in bp.ffn.named_parameters():
-                p.copy_(_t(blocks["ffn"][name][i], dev, dtype))
+            # each leaf in its parameter's own type: the MoE router stays
+            # fp32 whatever ``dtype``
+            for sub in ("attn", "ffn"):
+                for name, p in getattr(bp, sub).named_parameters():
+                    p.copy_(_t(blocks[sub][name][i], dev, p.dtype))
     return lm
 
 

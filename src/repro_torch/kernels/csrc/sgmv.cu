@@ -81,7 +81,10 @@
 //     own h tile (T, zeros past the live rows and past r up to the k
 //     chunk), syncs the cluster once more (no block leaves while another
 //     reads its shared memory), and expands its own output columns
-//     [j ceil(d_out / C), ...), 16-row tiles of live rows only. B3a/B4a
+//     [j w, (j + 1) w), w = ceil(d_out / C) rounded up to 8 columns (so
+//     that every share's rows of B start 16-byte aligned and load with
+//     cp.async: at d_out 576, C = 16, w is 40, not 36, and the last blocks
+//     take fewer columns or none), 16-row tiles of live rows only. B3a/B4a
 //     write their share of h straight to device memory (B4a with the zero
 //     columns r..max_r) and sync the cluster before leaving.
 // A decode call so fills ~8 C SMs instead of 8, and a block reads 2 MB /
@@ -674,7 +677,7 @@ __device__ void cluster_fused(const typename G::type* __restrict__ x_blk,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
   const int split = cl.num_blocks(), j = cl.block_rank();
-  const int dso = cdiv(d_out, split);
+  const int dso = cdiv(cdiv(d_out, split), 8) * 8;  // 16-byte aligned
   const int col0 = min(d_out, j * dso), col1 = min(d_out, col0 + dso);
   if (live == 0) {               // a spare block: the whole cluster leaves
     zero_rows<T, kThreads>(out_blk, d_out, 0, block_t, col0, col1);

@@ -9,7 +9,7 @@ of the weights, the cache and the bank, and the ranks meet in
 calling rank as a ``TensorParallel``; ``spawn`` starts the ranks of one
 world on this host.
 
-Only ``dp = 1`` is ported: data parallelism is ROADMAP queue A item 10.
+Only ``dp = 1`` is ported: data parallelism is ROADMAP queue A item 9.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ def make_engine_mesh(dp: int = 1, tp: int = 1, *,
     if dp != 1:
         raise NotImplementedError(
             f"dp={dp}: only dp = 1 is ported (data parallelism is ROADMAP "
-            "queue A item 10)")
+            "queue A item 9)")
     if tp < 1:
         raise ValueError(f"tp={tp} must be positive")
     dev = resolve_device(device)

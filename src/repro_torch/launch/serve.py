@@ -1,10 +1,13 @@
 """Serving launcher of the PyTorch port: one single-server engine over
-``llama-7b-paper`` with adapters of ranks {8, 16, 32, 64, 128}, serving a
+``--arch`` (a registered config, ``llama-7b-paper`` by default, as in the
+JAX launcher) with adapters of ranks {8, 16, 32, 64, 128}, serving a
 batch of requests and printing TTFT / TBT and decode tokens/s.
 
 Example (on the card, full width, bf16 weights from a seed):
   PYTHONPATH=src python -m repro_torch.launch.serve --config full \\
       --bank-mode bucketed --decode-block 4 --requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --servers 2 --bank-mode bucketed
 
 ``--config smoke`` serves the reduced config; ``--device cpu`` runs on the
 CPU with the kernels' plain versions. Base and adapter weights are random
@@ -57,10 +60,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.cluster import NetworkModel
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import POLICIES, AdapterInfo, ServeRequest
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_engine_mesh, spawn
+from repro_torch.lora.adapter import _target_in_dim, _target_out_dim
 from repro_torch.models import model as M
 from repro_torch.serving import (EngineBackend, LoRAServeCluster, Request,
                                  ServingEngine)
@@ -118,13 +122,15 @@ def serve(cfg, params, trace, *, bank_mode="padded", lora_kernel="sgmv",
 
 def adapter_weights(cfg, ranks, *, dtype, device, seed):
     """Nonzero A ~ N(0, 1/d) and B ~ N(0, 0.25/r) per adapter id, from
-    one ``torch.Generator``."""
+    one ``torch.Generator``, at each target's own widths (d_in, d_out:
+    ``lora.adapter._target_in_dim`` / ``_target_out_dim``)."""
     g = torch.Generator(device=device).manual_seed(seed)
     L, d = cfg.n_layers, cfg.d_model
-    return {aid: {t: {"A": (torch.randn((L, d, r), generator=g,
-                                        device=device) / d ** 0.5).to(dtype),
-                      "B": (torch.randn((L, r, d), generator=g,
-                                        device=device)
+    return {aid: {t: {"A": (torch.randn((L, _target_in_dim(cfg, t), r),
+                                        generator=g, device=device)
+                            / d ** 0.5).to(dtype),
+                      "B": (torch.randn((L, r, _target_out_dim(cfg, t)),
+                                        generator=g, device=device)
                             * (0.5 / r ** 0.5)).to(dtype)}
                   for t in cfg.lora.targets}
             for aid, r in ranks.items()}
@@ -194,7 +200,7 @@ def _serve_rank(rank: int, dp: int, tp: int, args) -> None:
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     cfg = (get_config if args.config == "full" else get_smoke_config)(
-        "llama-7b-paper")
+        args.arch)
     dtype = getattr(torch, args.dtype)
     params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
     trace = build_trace(cfg, args.requests,
@@ -435,7 +441,7 @@ def _serve_cluster(args) -> None:
     launcher on the port."""
     device = resolve_device(args.device)
     cfg = (get_config if args.config == "full" else get_smoke_config)(
-        "llama-7b-paper")
+        args.arch)
     dtype = getattr(torch, args.dtype)
     params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
     adapters = cluster_adapters(args.adapters)
@@ -572,6 +578,7 @@ def _serve_cluster(args) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama-7b-paper", choices=ARCH_IDS)
     ap.add_argument("--config", default="full", choices=["full", "smoke"])
     ap.add_argument("--bank-mode", default="padded",
                     choices=["padded", "bucketed"])

@@ -8,8 +8,8 @@ surface over the port's engines.
 Builds a ``LoRAServeCluster``, wraps it in ``ServeGateway`` and serves
 until SIGTERM/SIGINT, which triggers the graceful drain (stop admitting,
 finish in-flight, retire servers) before the final report. ``--backend
-engine`` (the default) serves ``llama-7b-paper`` on the port's torch
-engines, on the card unless ``--device cpu``: ``--config full`` (the
+engine`` (the default) serves ``--arch`` (``llama-7b-paper`` by default,
+as in the JAX launcher) on the port's torch engines, on the card unless ``--device cpu``: ``--config full`` (the
 default) at full width, bf16 weights from ``--seed``, the launcher's
 adapters with nonzero seeded weights (an adapter registered over HTTP
 gets its own, from the seed and its id), the kernels built and warmed
@@ -28,6 +28,7 @@ import asyncio
 from typing import Optional
 
 from repro_torch.cluster import NetworkModel
+from repro_torch.configs import ARCH_IDS
 from repro_torch.core import POLICIES
 from repro_torch.launch.serve import cluster_adapters
 from repro_torch.serving import LoRAServeCluster, SimBackend
@@ -46,7 +47,7 @@ def build_sim_cluster(args) -> LoRAServeCluster:
 
 def build_engine_cluster(args) -> LoRAServeCluster:
     """The launcher's adapters over ``args.servers`` engines that share one
-    copy of seeded ``llama-7b-paper`` weights (``launch.serve.
+    copy of seeded ``args.arch`` weights (``launch.serve.
     make_cluster``), kernels warmed on the card first."""
     import torch
 
@@ -58,7 +59,7 @@ def build_engine_cluster(args) -> LoRAServeCluster:
 
     device = resolve_device(args.device)
     cfg = (get_config if args.config == "full" else get_smoke_config)(
-        "llama-7b-paper")
+        args.arch)
     dtype = getattr(torch, args.dtype)
     params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
     adapters = cluster_adapters(args.adapters)
@@ -106,8 +107,10 @@ def main(argv=None):
                     help="execution substrate: the port's torch engines "
                          "(engine) or the calibrated discrete-event cost "
                          "model (sim, on the host)")
+    ap.add_argument("--arch", default="llama-7b-paper", choices=ARCH_IDS,
+                    help="the served model (engine)")
     ap.add_argument("--config", default="full", choices=["full", "smoke"],
-                    help="llama-7b-paper at full width or reduced (engine)")
+                    help="--arch at full width or reduced (engine)")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

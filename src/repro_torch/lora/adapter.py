@@ -109,16 +109,19 @@ def init_bank_from(cfg, adapter_ranks: Dict[str, int], seed: int,
         a = init_adapter(cfg, adapter_ranks[aid],
                          _generator(adapter_key(seed, aid), device),
                          n_layers=n_layers, dtype=dtype)
-        singles.append({t: {k: pad_rank(v, max_r) for k, v in w.items()}
-                        for t, w in a.items()})
+        singles.append(pad_adapter(a, max_r))
     return _stack_adapters(singles)
 
 
-def pad_rank(t: torch.Tensor, max_r: int) -> torch.Tensor:
-    # A: (L, in, r) -> pad last; B: (L, r, out) -> pad middle
-    if t.shape[-1] <= max_r and t.shape[-2] > t.shape[-1]:
-        return F.pad(t, (0, max_r - t.shape[-1]))
-    return F.pad(t, (0, 0, 0, max_r - t.shape[-2]))
+def pad_adapter(adapter, max_r: int):
+    """One adapter's ``{target: {"A": (L, d_in, r), "B": (L, r, d_out)}}``
+    zero-padded to rank ``max_r``: A along its last axis, B along its
+    middle one. (The JAX package's ``pad_rank`` tells A from B by shape
+    and pads a B whose d_out is below ``max_r`` as an A, which breaks the
+    bank it builds; the port pads by role, ROADMAP C10.)"""
+    return {t: {"A": F.pad(w["A"], (0, max_r - w["A"].shape[-1])),
+                "B": F.pad(w["B"], (0, 0, 0, max_r - w["B"].shape[-2]))}
+            for t, w in adapter.items()}
 
 
 def _leaves(tree):

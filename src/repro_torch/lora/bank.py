@@ -25,7 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from .adapter import (_generator, _stack_adapters, adapter_key, bank_nbytes,
-                      init_adapter, init_bank_from, pad_rank)
+                      init_adapter, init_bank_from, pad_adapter)
 
 
 def rank_bucket(rank: int) -> int:
@@ -148,8 +148,7 @@ def build_bank(cfg, adapter_ranks: Dict[str, int], seed: int = 0, *,
             a = init_adapter(cfg, adapter_ranks[aid],
                              _generator(adapter_key(seed, aid), dev),
                              n_layers=n_layers, dtype=dtype)
-            singles.append({t: {k: pad_rank(v, b) for k, v in w.items()}
-                            for t, w in a.items()})
+            singles.append(pad_adapter(a, b))
         data.append(_stack_adapters(singles))
     return LoRABank("bucketed", tuple(ids), tuple(ranks), tuple(data),
                     bucket_ranks=tuple(buckets),

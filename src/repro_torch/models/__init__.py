@@ -1,2 +1,2 @@
-"""Dense model of the PyTorch port: modules hold the weights, plain
-functions run prefill and decode."""
+"""Dense and MoE models of the PyTorch port: modules hold the weights,
+plain functions run prefill and decode."""

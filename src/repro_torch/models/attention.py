@@ -1,6 +1,7 @@
-"""Grouped-query attention of the PyTorch port (the GQA part of the JAX
-package's ``models/attention.py``; MLA and cross-attention wait for
-ROADMAP queue A item 11).
+"""Attention of the PyTorch port: grouped-query attention and DeepSeek-V2's
+multi-head latent attention (MLA), the GQA and MLA parts of the JAX
+package's ``models/attention.py`` (cross-attention waits for ROADMAP
+queue A item 10).
 
 Every projection takes an optional ``lora`` hook, a callable
 ``lora(name, x) -> delta`` that the serving engine uses to add batched
@@ -9,7 +10,9 @@ heterogeneous-adapter deltas on the Q/K/V/O projections.
 A prefill's attention (``gqa_full`` with ``positions=None``: the rows
 start at position 0) of an MHA config without a sliding window runs on
 the flash-attention kernel B5 (``kernels/flash.py``); GQA, windowed
-attention and explicit positions run on ``common.flash_attention``.
+attention and explicit positions run on ``common.flash_attention``, and
+so does MLA's (its rope key is shared by the heads, and its q.k head dim
+is not v's), as in the JAX package.
 
 Tensor parallel (``tp``, Megatron layout): a rank holds a contiguous
 range of query heads and their kv heads, so ``wq``, ``wk``, ``wv`` are
@@ -28,8 +31,8 @@ from torch import nn
 
 from repro_torch.kernels.flash import flash_mha
 
-from .common import (all_reduce_, apply_rope, attend_cache, dense_init,
-                     flash_attention, tp_size)
+from .common import (NEG_INF, all_reduce_, apply_rope, attend_cache,
+                     dense_init, flash_attention, rmsnorm, tp_size)
 
 
 def _zero_lora(name, x):
@@ -118,6 +121,21 @@ def gqa_full(cfg, p: GQAAttention, x, positions=None, *, causal=True,
     return _out_proj(p, o.reshape(B, S, -1), lora, tp), (k, v)
 
 
+def _write_token(cache, write_idx, new):
+    """Row b's ``new[b]`` into slot ``write_idx[b]`` of ``cache`` (B, S,
+    ...), in place. JAX drops a write whose index is past the cache, as
+    happens for free slots and frozen rows whose ``pos`` ran on; torch
+    indexing would raise (a device-side assert on CUDA). Such rows write
+    back the value already held at the clamped slot, so no real slot
+    changes."""
+    B, S = cache.shape[:2]
+    keep = (write_idx < S).reshape((B,) + (1,) * (cache.dim() - 2))
+    slot = write_idx.clamp(max=S - 1).long()
+    bidx = torch.arange(B, device=cache.device)
+    cache[bidx, slot] = torch.where(keep, new.to(cache.dtype),
+                                    cache[bidx, slot])
+
+
 def gqa_decode(cfg, p: GQAAttention, x, k_cache, v_cache, pos, *, window=0,
                lora: Optional[Callable] = None, tp=None):
     """Single-token decode. x: (B,1,d); caches (B,S,Kv,hd); pos: (B,) int
@@ -125,24 +143,149 @@ def gqa_decode(cfg, p: GQAAttention, x, k_cache, v_cache, pos, *, window=0,
     v_cache)) with the new token written (ring-indexed when window > 0).
 
     The JAX version returns new caches; this one writes the given cache
-    tensors in place. JAX drops a write whose index is past the cache, as
-    happens for free slots and frozen rows whose ``pos`` ran on; torch
-    indexing would raise (a device-side assert on CUDA). Such rows are
-    masked: they write back the value already held at the clamped slot,
-    so no real slot changes."""
+    tensors in place, masking rows past the cache (``_write_token``)."""
     lora = lora or _zero_lora
     B = x.shape[0]
     S = k_cache.shape[1]
     q, k, v = _qkv(cfg, p, x, pos[:, None], lora)
     write_idx = pos % S if window else pos
-    keep = (write_idx < S)[:, None, None]
-    slot = write_idx.clamp(max=S - 1).long()
-    bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot] = torch.where(keep, k[:, 0].to(k_cache.dtype),
-                                      k_cache[bidx, slot])
-    v_cache[bidx, slot] = torch.where(keep, v[:, 0].to(v_cache.dtype),
-                                      v_cache[bidx, slot])
+    _write_token(k_cache, write_idx, k[:, 0])
+    _write_token(v_cache, write_idx, v[:, 0])
     slots = torch.arange(S, device=x.device)[None, :]
     valid = slots <= pos.clamp(max=S - 1)[:, None]
     o = attend_cache(q, k_cache, v_cache, valid)
     return _out_proj(p, o.reshape(B, 1, -1), lora, tp), (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): a compressed cache of (c_kv, k_rope)
+# ---------------------------------------------------------------------------
+
+
+class MLAAttention(nn.Module):
+    """wq: (d, H*(nope+rope)); w_dkv: (d, kv_lora_rank+rope); ln_kv:
+    (kv_lora_rank,); w_uk: (kv_lora_rank, H*nope); w_uv: (kv_lora_rank,
+    H*v_head_dim); wo: (H*v_head_dim, d). Not tensor-parallel
+    (``serving.sharding`` refuses MLA at tp > 1)."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__()
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.n_heads
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+        def w(shape):
+            return nn.Parameter(dense_init(gen, shape, dtype=dtype),
+                                requires_grad=False)
+
+        self.wq = w((d, H * qd))
+        self.w_dkv = w((d, m.kv_lora_rank + m.qk_rope_head_dim))
+        self.ln_kv = nn.Parameter(torch.ones(m.kv_lora_rank, dtype=dtype,
+                                             device=gen.device),
+                                  requires_grad=False)
+        self.w_uk = w((m.kv_lora_rank, H * m.qk_nope_head_dim))
+        self.w_uv = w((m.kv_lora_rank, H * m.v_head_dim))
+        self.wo = w((H * m.v_head_dim, d))
+
+
+def _mla_q(cfg, p: MLAAttention, x, positions, lora):
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = (x @ p.wq + lora("q", x)).reshape(
+        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    qn, qr = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return torch.cat([qn, apply_rope(qr, positions, cfg.rope_theta)], dim=-1)
+
+
+def _mla_ckv(cfg, p: MLAAttention, x, positions, lora):
+    """(c (B,S,kv_lora_rank) normed, kr (B,S,1,rope) rotated). Only the
+    ``k`` adapter reaches MLA, on ``w_dkv``: the reference never applies
+    ``v`` here, and neither does the port (ROADMAP C9)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    dkv = x @ p.w_dkv + lora("k", x)
+    c, kr = dkv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c = rmsnorm(c, p.ln_kv, cfg.rmsnorm_eps)
+    kr = apply_rope(kr.reshape(B, S, 1, m.qk_rope_head_dim), positions,
+                    cfg.rope_theta)
+    return c, kr
+
+
+def _mla_expand(cfg, p: MLAAttention, c):
+    """The compressed cache expanded into per-head K_nope and V, in the
+    promoted type of c and the weights (JAX promotes an fp32 cache times
+    bf16 weights to fp32; torch would refuse the mixed product)."""
+    m = cfg.mla
+    B, S, _ = c.shape
+    dt = torch.promote_types(c.dtype, p.w_uk.dtype)
+    c = c.to(dt)
+    kn = (c @ p.w_uk.to(dt)).reshape(B, S, cfg.n_heads, m.qk_nope_head_dim)
+    v = (c @ p.w_uv.to(dt)).reshape(B, S, cfg.n_heads, m.v_head_dim)
+    return kn, v
+
+
+def mla_full(cfg, p: MLAAttention, x, positions=None, *, causal=True,
+             window=0, lora: Optional[Callable] = None):
+    """Full-sequence MLA; ``positions=None`` means ``arange(S)``. The score
+    is q_nope.k_nope + q_rope.k_rope, the shared rope key scored as
+    ``flash_attention``'s ``extra_qk``. Returns (out, (c, kr)) for cache
+    seeding: c (B,S,kv_lora_rank), kr (B,S,rope)."""
+    lora = lora or _zero_lora
+    m = cfg.mla
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = _mla_q(cfg, p, x, positions, lora)
+    c, kr = _mla_ckv(cfg, p, x, positions, lora)
+    kn, v = _mla_expand(cfg, p, c)
+    qn, qr = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    scale = 1.0 / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+    o = flash_attention(qn, kn, v, causal=causal, q_positions=positions,
+                        k_positions=positions, window=window, scale=scale,
+                        extra_qk=(qr, kr[:, :, 0, :]))
+    return _out_proj(p, o.reshape(B, S, -1), lora, None), (c, kr[:, :, 0, :])
+
+
+def mla_decode(cfg, p: MLAAttention, x, c_cache, kr_cache, pos, *,
+               window=0, lora: Optional[Callable] = None,
+               absorbed: bool = False):
+    """Single-token MLA decode. c_cache: (B,S,kv_lora_rank); kr_cache:
+    (B,S,rope), both written in place as ``gqa_decode`` writes its caches.
+
+    ``absorbed=False`` (the engine's) expands the whole cached latent into
+    per-head K/V each step; ``absorbed=True`` folds W_UK into the query and
+    W_UV into the output (score = (q_nope @ W_UK^T) . c), never making
+    per-head K/V. Returns (out, (c_cache, kr_cache))."""
+    lora = lora or _zero_lora
+    m = cfg.mla
+    B = x.shape[0]
+    S = c_cache.shape[1]
+    H = cfg.n_heads
+    q = _mla_q(cfg, p, x, pos[:, None], lora)                # (B,1,H,qd)
+    c_t, kr_t = _mla_ckv(cfg, p, x, pos[:, None], lora)
+    write_idx = pos % S if window else pos
+    _write_token(c_cache, write_idx, c_t[:, 0])
+    _write_token(kr_cache, write_idx, kr_t[:, 0, 0])
+    slots = torch.arange(S, device=x.device)[None, :]
+    valid = slots <= pos.clamp(max=S - 1)[:, None]
+    qn, qr = q[:, 0].split([m.qk_nope_head_dim, m.qk_rope_head_dim],
+                           dim=-1)                           # (B,H,*)
+    scale = 1.0 / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+    if absorbed:
+        c32 = c_cache.float()
+        wuk = p.w_uk.reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+        q_lat = torch.einsum("bhn,rhn->bhr", qn.float(), wuk.float())
+        s = torch.einsum("bhr,bsr->bhs", q_lat, c32)
+        s = s + torch.einsum("bhr,bsr->bhs", qr.float(), kr_cache.float())
+        s = torch.where(valid[:, None, :], s * scale, NEG_INF)
+        o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), c32)
+        wuv = p.w_uv.reshape(m.kv_lora_rank, H, m.v_head_dim)
+        o = torch.einsum("bhr,rhv->bhv", o_lat, wuv.float())
+        o = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+    else:
+        kn, v = _mla_expand(cfg, p, c_cache)                 # (B,S,H,*)
+        dt = torch.promote_types(kn.dtype, kr_cache.dtype)
+        k = torch.cat([kn.to(dt), kr_cache[:, :, None, :].to(dt).expand(
+            B, S, H, m.qk_rope_head_dim)], dim=-1)
+        o = attend_cache(q, k, v, valid, scale=scale).reshape(B, 1, -1)
+    return _out_proj(p, o, lora, None), (c_cache, kr_cache)

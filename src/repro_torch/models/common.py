@@ -90,13 +90,17 @@ def dense_init(gen: torch.Generator, shape, fan_in=None,
 
 def flash_attention(q, k, v, *, causal: bool, q_positions, k_positions,
                     window: int = 0, chunk_q: int = 512, chunk_k: int = 1024,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None, extra_qk=None):
     """q: (B,Sq,H,hd); k,v: (B,Sk,Kv,hd). GQA via head grouping.
 
     Masking: causal (q_pos >= k_pos) and optional sliding window
     (q_pos - k_pos < window). Positions are int tensors (Sq,), (Sk,).
     Chunked online softmax over kv chunks, scores in fp32. Returns
-    (B,Sq,H,hd) in q.dtype. (MLA's ``extra_qk`` waits for the MLA port.)
+    (B,Sq,H,hd) in q.dtype.
+
+    extra_qk: optional (q2 (B,Sq,H,hd2), k2 (B,Sk,hd2)) pair whose product
+    is added to the scores: MLA's shared rope key, scored as a second
+    einsum (k2 has no head dim), never broadcast into a per-head K.
     """
     B, Sq, H, hd = q.shape
     _, Sk, Kv, _ = k.shape
@@ -111,6 +115,11 @@ def flash_attention(q, k, v, *, causal: bool, q_positions, k_positions,
     qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
     kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
     vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    if extra_qk is not None:
+        q2, k2 = extra_qk
+        hd2 = q2.shape[-1]
+        q2p = F.pad(q2, (0, 0, 0, 0, 0, pad_q))
+        k2p = F.pad(k2, (0, 0, 0, pad_k))
     qpos = F.pad(q_positions.to(torch.int32), (0, pad_q), value=-1)
     kpos = F.pad(k_positions.to(torch.int32), (0, pad_k), value=2 ** 30)
     nq, nk = qp.shape[1] // cq, kp.shape[1] // ck
@@ -118,6 +127,9 @@ def flash_attention(q, k, v, *, causal: bool, q_positions, k_positions,
     qp = qp.reshape(B, nq, cq, Kv, G, hd).float() * scale
     kp = kp.reshape(B, nk, ck, Kv, hd).float()
     vp = vp.reshape(B, nk, ck, Kv, hdv).float()
+    if extra_qk is not None:
+        q2p = q2p.reshape(B, nq, cq, Kv, G, hd2).float() * scale
+        k2p = k2p.reshape(B, nk, ck, hd2).float()
     qpos = qpos.reshape(nq, cq)
     kpos = kpos.reshape(nk, ck)
 
@@ -129,6 +141,8 @@ def flash_attention(q, k, v, *, causal: bool, q_positions, k_positions,
     for j in range(nk):                     # the kv-chunk scan
         kc, vc, kposc = kp[:, j], vp[:, j], kpos[j]
         s = torch.einsum("bqckgh,bzkh->bqckgz", qp, kc)
+        if extra_qk is not None:
+            s = s + torch.einsum("bqckgh,bzh->bqckgz", q2p, k2p[:, j])
         mask = torch.ones((nq, cq, ck), dtype=torch.bool, device=q.device)
         if causal:
             mask &= qpos[:, :, None] >= kposc[None, None, :]

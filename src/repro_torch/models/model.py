@@ -1,14 +1,21 @@
-"""Model assembly of the PyTorch port for the dense family: init, prefill
-and decode (the dense branches of the JAX package's ``models/model.py``).
+"""Model assembly of the PyTorch port for the dense and MoE families:
+init, prefill and decode (the ``dense``/``moe`` branches of the JAX
+package's ``models/model.py``, which run both on one runner).
 
 Parameters live in ``nn.Module``s (``DenseLM`` > ``DenseBlock`` >
-``GQAAttention`` / ``SwiGLU``) in the JAX layout, weights (d_in, d_out)
-used as ``x @ w``. The layer stack is a Python loop over ``blocks`` where
-JAX scans. Cache dict keys, as in the JAX package:
-  pos  : (B,) int32 — tokens currently in the cache per row
-  k, v : (L, B, S, Kv, hd) self-attention KV
-``decode_step`` writes each layer's new K/V into the given cache tensors
-in place (JAX returns new arrays) and returns a dict with a new ``pos``.
+``GQAAttention`` or ``MLAAttention``, ``SwiGLU`` or ``MoE``, chosen as
+the JAX ``_init_dense_block`` chooses: MLA when ``cfg.mla`` is set, MoE
+when ``cfg.moe`` is) in the JAX layout, weights (d_in, d_out) used as
+``x @ w``. The layer stack is a Python loop over ``blocks`` where JAX
+scans. Cache dict keys, as in the JAX package:
+  pos   : (B,) int32 — tokens currently in the cache per row
+  k, v  : (L, B, S, Kv, hd) self-attention KV
+  c, kr : (L, B, S, kv_lora_rank) / (L, B, S, rope) MLA's compressed
+          cache, in place of k and v
+``decode_step`` writes each layer's new entries into the given cache
+tensors in place (JAX returns new arrays) and returns a dict with a new
+``pos``. Serving ignores the MoE layers' balance loss, as the JAX
+prefill and decode do.
 
 ``tp`` (a ``launch.mesh.TensorParallel``, optional) runs a rank of a
 tensor-parallel model: ``params`` is the rank's slice
@@ -27,17 +34,22 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.lora.batched import make_lora_cb
 
-from .attention import GQAAttention, gqa_decode, gqa_full
+from .attention import (GQAAttention, MLAAttention, gqa_decode, gqa_full,
+                        mla_decode, mla_full)
 from .common import dense_init, rmsnorm, tp_size
-from .ffn import SwiGLU
+from .ffn import MoE, SwiGLU, moe_ffn
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None \
-            or cfg.ssm is not None:
+    if cfg.family not in ("dense", "moe") or cfg.ssm is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family without MoE or MLA is "
-            "ported; the other families are ROADMAP queue A item 11")
+            f"{cfg.name}: family {cfg.family!r} is not ported; the dense "
+            "and MoE families are, the others are ROADMAP queue A item 10")
+
+
+def _cache_keys(cfg):
+    """The two per-layer cache entries of an attention layer."""
+    return ("c", "kr") if cfg.mla is not None else ("k", "v")
 
 
 class DenseBlock(nn.Module):
@@ -48,8 +60,10 @@ class DenseBlock(nn.Module):
                                 requires_grad=False)
         self.ln2 = nn.Parameter(torch.ones(d, dtype=dtype, device=gen.device),
                                 requires_grad=False)
-        self.attn = GQAAttention(cfg, gen, dtype)
-        self.ffn = SwiGLU(d, cfg.d_ff, gen, dtype)
+        self.attn = (MLAAttention if cfg.mla is not None else GQAAttention)(
+            cfg, gen, dtype)
+        self.ffn = MoE(cfg, gen, dtype) if cfg.moe is not None else \
+            SwiGLU(d, cfg.d_ff, gen, dtype)
 
 
 class DenseLM(nn.Module):
@@ -96,22 +110,36 @@ def bank_layer(bank, i: int):
     return {t: {"A": w["A"][i], "B": w["B"][i]} for t, w in bank.items()}
 
 
+def _ffn(cfg, bp: DenseBlock, x, tp):
+    xn = rmsnorm(x, bp.ln2, cfg.rmsnorm_eps)
+    if cfg.moe is not None:
+        return moe_ffn(cfg, bp.ffn, xn)[0]
+    return bp.ffn(xn, tp)
+
+
 def _dense_block_full(cfg, bp: DenseBlock, x, window, lora, tp):
     # positions None: the prefill's arange(S), which lets MHA attention
     # take kernel B5
-    h, kv = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                     window=window, lora=lora, tp=tp)
+    xn = rmsnorm(x, bp.ln1, cfg.rmsnorm_eps)
+    if cfg.mla is not None:
+        h, kv = mla_full(cfg, bp.attn, xn, window=window, lora=lora)
+    else:
+        h, kv = gqa_full(cfg, bp.attn, xn, window=window, lora=lora, tp=tp)
     x = x + h
-    f = bp.ffn(rmsnorm(x, bp.ln2, cfg.rmsnorm_eps), tp)
-    return x + f, kv
+    return x + _ffn(cfg, bp, x, tp), kv
 
 
 def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
-                        tp):
-    h, _ = gqa_decode(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                      kc, vc, pos, window=window, lora=lora, tp=tp)
+                        tp, mla_absorbed=False):
+    xn = rmsnorm(x, bp.ln1, cfg.rmsnorm_eps)
+    if cfg.mla is not None:
+        h, _ = mla_decode(cfg, bp.attn, xn, kc, vc, pos, window=window,
+                          lora=lora, absorbed=mla_absorbed)
+    else:
+        h, _ = gqa_decode(cfg, bp.attn, xn, kc, vc, pos, window=window,
+                          lora=lora, tp=tp)
     x = x + h
-    return x + bp.ffn(rmsnorm(x, bp.ln2, cfg.rmsnorm_eps), tp)
+    return x + _ffn(cfg, bp, x, tp)
 
 
 def _embed(params: DenseLM, tokens):
@@ -126,11 +154,17 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
     "baseline" cache layout), and no full cache is ever made."""
     _check_family(cfg)
     dev = resolve_device(device)
-    Kv, hd = cfg.n_kv_heads // tp_size(tp), cfg.resolved_head_dim
-    shape = (cfg.n_layers, batch, max_len, Kv, hd)
-    return {"pos": torch.zeros(batch, dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.mla is not None:
+        m = cfg.mla
+        shapes = (lead + (m.kv_lora_rank,), lead + (m.qk_rope_head_dim,))
+    else:
+        kv = lead + (cfg.n_kv_heads // tp_size(tp), cfg.resolved_head_dim)
+        shapes = (kv, kv)
+    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    for name, shape in zip(_cache_keys(cfg), shapes):
+        cache[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    return cache
 
 
 def _write_prefill_kv(kvs, cache_arr, window):
@@ -163,10 +197,10 @@ def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
     for i, bp in enumerate(params.blocks):
         lora = make_lora_cb(bank_layer(bank, i), lora_idx,
                             kernel=lora_kernel, tp=tp)
-        x, (k, v) = _dense_block_full(cfg, bp, x, window, lora, tp)
+        x, kv = _dense_block_full(cfg, bp, x, window, lora, tp)
         # one layer at a time into the cache (no stacked (L, ...) copy)
-        _write_prefill_kv(k[None], cache["k"][i:i + 1], window)
-        _write_prefill_kv(v[None], cache["v"][i:i + 1], window)
+        for name, t in zip(_cache_keys(cfg), kv):
+            _write_prefill_kv(t[None], cache[name][i:i + 1], window)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
     h_last = rmsnorm(x[:, -1], params.ln_f, cfg.rmsnorm_eps)
@@ -175,18 +209,21 @@ def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
 
 def decode_step(cfg, params: DenseLM, cache, tokens, *, bank=None,
                 lora_idx=None, window: Optional[int] = None,
-                lora_kernel="einsum", tp=None):
+                mla_absorbed=False, lora_kernel="einsum", tp=None):
     """One decode step. tokens: (B,) int. Returns (logits (B,V), cache):
-    the K/V tensors of ``cache`` are updated in place, ``pos`` is new."""
+    the K/V (or c/kr) tensors of ``cache`` are updated in place, ``pos``
+    is new. ``mla_absorbed`` selects MLA's absorbed decode (the engine's
+    is the naive expand)."""
     _check_family(cfg)
     window = cfg.sliding_window if window is None else window
     pos = cache["pos"]
+    ka, kb = _cache_keys(cfg)
     x = _embed(params, tokens[:, None])
     for i, bp in enumerate(params.blocks):
         lora = make_lora_cb(bank_layer(bank, i), lora_idx,
                             kernel=lora_kernel, tp=tp)
-        x = _dense_block_decode(cfg, bp, x, cache["k"][i], cache["v"][i],
-                                pos, window, lora, tp)
+        x = _dense_block_decode(cfg, bp, x, cache[ka][i], cache[kb][i],
+                                pos, window, lora, tp, mla_absorbed)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     h_last = rmsnorm(x[:, 0], params.ln_f, cfg.rmsnorm_eps)

@@ -18,7 +18,8 @@ owns every placement decision:
   (``lora.batched``).
 
 Where the JAX package falls back to replicating a dim that the mesh
-does not divide (``fit_spec``), this one refuses the config.
+does not divide (``fit_spec``), this one refuses the config; it refuses
+MoE and MLA configs too (ROADMAP queue A item 9).
 """
 from __future__ import annotations
 
@@ -62,6 +63,12 @@ class EngineSharding:
     """Placement for one rank of a tensor-parallel engine."""
 
     def __init__(self, tp: TensorParallel, cfg):
+        if cfg.moe is not None or cfg.mla is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE and MLA layers are not sharded at tp > 1; "
+                "the port shards the dense layout only (PARAM_SPLIT). "
+                "Expert parallelism (moe_ffn_ep) and MLA's head split are "
+                "ROADMAP queue A item 9")
         for name in ("n_heads", "n_kv_heads", "d_ff", "d_model"):
             if getattr(cfg, name) % tp.size:
                 raise ValueError(

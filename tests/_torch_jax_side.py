@@ -1,8 +1,10 @@
-"""Helpers shared by the PyTorch port's serving tests (imported by
-``test_torch_cluster.py``, ``test_torch_obs.py``, ``test_torch_server.py``
-and ``test_torch_sim.py``): the JAX side of a parity run with the same
-seeded adapter weights as the port's, and a plain form of two packages'
-results for comparing them."""
+"""Helpers shared by the PyTorch port's serving and model tests (imported
+by ``test_torch_cluster.py``, ``test_torch_obs.py``, ``test_torch_server.py``,
+``test_torch_sim.py``, ``test_torch_moe.py``, ``test_torch_mla.py`` and
+``test_torch_configs.py``): the JAX side of a parity run with the same
+seeded adapter weights as the port's, nonzero adapter weights at every
+target's own widths, and a plain form of two packages' results for
+comparing them."""
 import dataclasses
 import enum
 import math
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repro.configs import get_smoke_config
+from repro.lora.adapter import _target_in_dim, _target_out_dim
 from repro.models import model as JM
 from repro.serving import EngineBackend as JEngineBackend
 from repro_torch import bridge
@@ -95,6 +98,23 @@ def seeded_setup(ranks):
                           for aid, x in w.items()})
     tw = {aid: bridge.adapter_weights_from_numpy(x) for aid, x in w.items()}
     return cfg, jp, tp, jw, tw
+
+
+def nonzero_weights(cfg, ranks, seed, scale=0.2):
+    """Adapter weights ``{adapter: {target: {"A": (L, d_in, r), "B": (L, r,
+    d_out)}}}`` as fp32 numpy from a seed, every entry nonzero (a fresh
+    bank's B is zero, ROADMAP C1), at each target's widths (MLA's q, k/v
+    and o differ from d_model; so do GQA's k and v)."""
+    rng = np.random.default_rng(seed)
+    L = cfg.n_layers
+    return {aid: {t: {"A": (rng.standard_normal(
+                          (L, _target_in_dim(cfg, t), r)) * scale
+                          ).astype(np.float32),
+                      "B": (rng.standard_normal(
+                          (L, r, _target_out_dim(cfg, t))) * scale
+                          ).astype(np.float32)}
+                  for t in cfg.lora.targets}
+            for aid, r in ranks.items()}
 
 
 def plain(obj):

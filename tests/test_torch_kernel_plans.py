@@ -25,9 +25,10 @@ from repro.kernels import ops as jops
 from repro.kernels.flash import flash_mha as jax_flash_mha
 from repro.kernels.sgmv import sgmv_fused_blocks as jax_fused_blocks
 from repro.kernels.sgmv import sgmv_shrink as jax_shrink
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import flash as tflash
 from repro_torch.kernels import sgmv as tsgmv
+from repro_torch.lora.adapter import _target_in_dim
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -58,12 +59,14 @@ def _both(a, dtype):
 
 
 def _port_widths():
-    """Every d the port's shrink runs: llama-7b-paper and its smoke
-    config at tp = 1, 2 and 4 (LoRA's A spans d_model, or a rank's
-    d_model / tp), and the widths of the kernel tests' SHAPES."""
-    widths = {cfg.d_model // tp for cfg in (get_config("llama-7b-paper"),
-                                            get_smoke_config("llama-7b-paper"))
-              for tp in (1, 2, 4)}
+    """Every d the port's shrink runs: each registered config and its
+    smoke config at tp = 1, 2 and 4 (LoRA's A spans d_model or the o
+    target's heads, or a rank's share of either), and the widths of the
+    kernel tests' SHAPES."""
+    widths = {_target_in_dim(cfg, t) // tp
+              for arch in ARCH_IDS
+              for cfg in (get_config(arch), get_smoke_config(arch))
+              for t in cfg.lora.targets for tp in (1, 2, 4)}
     return sorted(widths | {d for _, d, *_ in SHAPES})
 
 
@@ -83,6 +86,14 @@ def test_shrink_split_of_the_full_model():
     got = {d: tsgmv.shrink_split(d, torch.bfloat16)
            for d in (4096, 2048, 1024)}
     assert got == {4096: 16, 2048: 16, 1024: 8}
+
+
+def test_shrink_split_of_the_moe_models():
+    """deepseek-v2-lite-16b's d 2048 (128-row slices) and llama4-scout's
+    5120 (320-row slices, not a multiple of 128) both take 16."""
+    got = {d: tsgmv.shrink_split(d, torch.bfloat16) for d in (2048, 5120)}
+    assert got == {2048: 16, 5120: 16}
+    assert -(-5120 // 16) == 320
 
 
 def test_shrink_split_refuses_what_no_kernel_takes():

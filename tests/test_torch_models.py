@@ -304,6 +304,6 @@ def test_bank_layouts_match_jax(setup):
 
 
 def test_other_families_raise(setup):
-    cfg = dataclasses.replace(setup[0], family="moe")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    cfg = dataclasses.replace(setup[0], family="hybrid")
+    with pytest.raises(NotImplementedError, match="item 10"):
         TM.init_params(cfg, 0, device="cpu")
