@@ -169,6 +169,40 @@ Phases (any failure raises; the script then exits non-zero):
                ``scaled_dot_product_attention`` on the 1000-token group.
                Each run logs TTFT, TBT, tok/s and peak memory; the
                kernels line adds its launches.
+ 11. recurrent — after phase 10, the recurrent families at full width
+               and depth, bf16 weights from a seed, fp32 caches, on phase
+               2's trace, padded and bucketed, decode blocks 1 and 4: (a)
+               zamba2-7b (81 Mamba2 blocks, d 3584, one shared MHA block
+               32 x 112 applied 14 times, whose one-layer bank serves
+               every application): the same tokens in every run, B1/B2
+               4 x 14 times a model pass and B5 14 times a prefill group;
+               (b) rwkv6-7b (32 layers, d 4096): the same, B1/B2 4 x 32
+               times a model pass, B5 never. For each, the first prefill
+               group's bf16 logits equal bit for bit across the banks and
+               are held within 5e-2 of the largest logit of an fp32 einsum
+               run on the same weights (upcast in place) in which every
+               layer takes the bf16 run's input (``LayerReplay``), each
+               layer's output held too; the free fp32 run's distance and
+               the fp32 logits' move under a one-rounding perturbation of
+               the input (``Perturbed``) are printed. (c) Every B1 and B2
+               call the runs recorded (d 3584 and 4096; a decode step and
+               the 2 x 1000 group) and B3a/B3b on B1's, against plain,
+               timed and bounded with their yardsticks, and the bit
+               identities of phase 10 (b); B5 at head dim 112 on zamba2's
+               2 x 1000 group against ``flash_mha_plain``, timed beside
+               ``scaled_dot_product_attention``. (d) ``LoRAServeCluster``
+               over 2 zamba2 engines with a ``UnifiedPagePool`` each
+               (phase 8's virtual-clock drive, bucketed): tokens equal the
+               drive without pools, every pool's invariant holds after the
+               drain, pages by kind printed; then ``python -m
+               repro_torch.launch.serve --arch rwkv6-7b --config full
+               --servers 2 --bank-mode bucketed --decode-block 4`` exits 0
+               with ``cluster drained OK``. (e) stablelm-1.6b at full
+               width: one adapter merged into the bf16 weights
+               (``merge_adapter``), the first group's logits within 5e-2 of
+               the SGMV path's on a bank of that adapter alone. Each run
+               logs TTFT, TBT, tok/s and peak memory; the kernels line
+               adds its launches.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -739,15 +773,20 @@ def phase_kernels(dev, calls):
 def _path_launches(cfg, mode, passes, groups):
     """What an engine's runs launch: the mode's SGMV kernel once per LoRA
     call of a model pass (MLA calls q, k and o: its v adapter is never
-    applied), B5 once a layer per prefill group of an MHA model without a
-    window; nothing else."""
+    applied; the hybrid's calls come at each application of its shared
+    attention block, RWKV-6's at each layer), B5 once per attention layer
+    or application per prefill group of an MHA model without a window;
+    nothing else."""
+    from repro_torch.models.model import n_attn_applications
     calls = 3 if cfg.mla is not None else len(cfg.lora.targets)
+    n_attn = n_attn_applications(cfg)
+    lora_layers = n_attn if cfg.family == "hybrid" else cfg.n_layers
     want = {kid: 0 for kid in KERNELS}
     want[{"padded": "B1", "bucketed": "B2"}[mode]] = \
-        calls * cfg.n_layers * passes
-    if cfg.mla is None and cfg.n_heads == cfg.n_kv_heads \
+        calls * lora_layers * passes
+    if n_attn and cfg.mla is None and cfg.n_heads == cfg.n_kv_heads \
             and not cfg.sliding_window:
-        want["B5"] = cfg.n_layers * groups
+        want["B5"] = n_attn * groups
     return want
 
 
@@ -1823,11 +1862,13 @@ LLAMA4_LAYERS = 8                     # 48 layers need 215 GB in bf16
 STABLELM = "stablelm-1.6b"
 
 
-def _moe_engine_runs(dev, cfg, params, trace, weights, runs, smi, rec):
+def _moe_engine_runs(dev, cfg, params, trace, weights, runs, smi, rec,
+                     tag="moe"):
     """Serve ``trace`` once per (bank mode, decode_block) in ``runs``,
     every count at 0 just before each run and read just after; every run
     emits the same tokens and launches what ``_path_launches`` says.
-    Returns (the summed launches, each mode's last engine)."""
+    ``tag`` begins each log line. Returns (the summed launches, each
+    mode's last engine)."""
     from repro_torch.launch.serve import serve
     wrappers = _wrappers()
     total = {kid: 0 for kid in KERNELS}
@@ -1853,7 +1894,7 @@ def _moe_engine_runs(dev, cfg, params, trace, weights, runs, smi, rec):
             total[kid] += n
         outputs[(mode, db)] = [r.output for r in reqs]
         engines[mode] = eng
-        log(f"moe engine {cfg.name} layers={cfg.n_layers} mode={mode} "
+        log(f"{tag} engine {cfg.name} layers={cfg.n_layers} mode={mode} "
             f"decode_block={db} | {smi}: finished={s['finished']}/"
             f"{len(trace)} prefill_groups={eng.prefill_dispatches} "
             f"decode_steps={eng.decode_iterations} decode_dispatches="
@@ -1867,21 +1908,21 @@ def _moe_engine_runs(dev, cfg, params, trace, weights, runs, smi, rec):
     first = next(iter(outputs.values()))
     for key, out in outputs.items():
         assert out == first, f"{cfg.name}: tokens of {key} differ"
-    log(f"moe engine {cfg.name}: {len(outputs)} runs ({sorted(outputs)}) "
+    log(f"{tag} engine {cfg.name}: {len(outputs)} runs ({sorted(outputs)}) "
         f"emit the same tokens; padded == bucketed bit for bit; first "
         f"request {first[0]}")
     return total, engines
 
 
-def _init_model(cfg, dev):
+def _init_model(cfg, dev, tag="moe"):
     from repro_torch.models import model as M
     t0 = time.monotonic()
     params = M.init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     n_par = sum(p.numel() for p in params.parameters())
     par_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"moe init {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
-        f"params={n_par} ({par_bytes / 1e9:.2f} GB, bf16, the router fp32) "
+    log(f"{tag} init {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+        f"params={n_par} ({par_bytes / 1e9:.2f} GB, bf16, a router fp32) "
         f"in {time.monotonic() - t0:.1f}s")
     return params
 
@@ -2054,13 +2095,13 @@ def _moe_llama4(dev, smi, results):
     return launches
 
 
-def _moe_launcher():
-    """Phase 10 (d): the serve launcher at deepseek-v2-lite-16b full width
+def _moe_launcher(arch=DEEPSEEK, tag="moe"):
+    """Phase 10 (d), 11 (d): the serve launcher at ``arch``'s full width
     with 2 servers, as a subprocess: exit 0, ``cluster drained OK``."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    args = ["repro_torch.launch.serve", "--arch", DEEPSEEK, "--config",
+    args = ["repro_torch.launch.serve", "--arch", arch, "--config",
             "full", "--servers", "2", "--bank-mode", "bucketed",
             "--decode-block", "4"]
     t0 = time.monotonic()
@@ -2070,7 +2111,7 @@ def _moe_launcher():
     assert proc.returncode == 0, (proc.returncode, proc.stdout,
                                   proc.stderr[-4000:])
     assert lines and lines[-1] == "cluster drained OK", proc.stdout
-    log(f"moe launcher python -m {' '.join(args)}: exit 0 in "
+    log(f"{tag} launcher python -m {' '.join(args)}: exit 0 in "
         f"{time.monotonic() - t0:.1f}s; it printed: {' | '.join(lines)}")
 
 
@@ -2118,6 +2159,289 @@ def phase_moe(dev, smi):
         launches[kid] += n
     _free()
     log(f"phase moe stablelm: {time.monotonic() - t0:.1f}s")
+    return launches, results
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families, the page pool and merge_adapter
+# ---------------------------------------------------------------------------
+ZAMBA2 = "zamba2-7b"
+RWKV6 = "rwkv6-7b"
+
+
+class LayerReplay:
+    """Stands in for the layer functions of ``models.model`` while entered
+    (``_dense_block_full``, ``_mamba_layer``, ``_rwkv_block``: each takes
+    the hidden state as its third argument and returns the new one
+    first). Recording, it keeps every call's input and output in call
+    order; replaying ``rec`` (an earlier recording of the same model on
+    the same tokens), each call takes the recorded input, cast to its own
+    type, in place of its own: a run in another type then computes every
+    layer on the recorded run's inputs, and the two runs differ by each
+    layer's own arithmetic, not by what the stack made of the earlier
+    layers' rounding."""
+
+    NAMES = ("_dense_block_full", "_mamba_layer", "_rwkv_block")
+
+    def __init__(self, rec=None):
+        from repro_torch.models import model
+        self.model, self.rec, self.inputs, self.outputs = model, rec, [], []
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.model, n) for n in self.NAMES}
+        for name, fn in self.orig.items():
+            setattr(self.model, name, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        def call(cfg, bp, x, *args, **kw):
+            if self.rec is not None:
+                x = self.rec.inputs[len(self.inputs)].to(x.dtype)
+            self.inputs.append(x.detach().clone())
+            out = fn(cfg, bp, x, *args, **kw)
+            self.outputs.append(out[0].detach().clone())
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.model, name, fn)
+
+
+class Perturbed:
+    """Stands in for ``models.model._embed`` while entered: the embedded
+    input times (1 + ``eps`` * N(0, 1)), the noise from a fixed seed."""
+
+    def __init__(self, eps):
+        from repro_torch.models import model
+        self.model, self.eps = model, eps
+
+    def __enter__(self):
+        self.orig = self.model._embed
+
+        def embed(params, tokens):
+            x = self.orig(params, tokens)
+            g = torch.Generator(device=x.device).manual_seed(1)
+            return x * (1 + self.eps * torch.randn(
+                x.shape, generator=g, device=x.device, dtype=x.dtype))
+        self.model._embed = embed
+        return self
+
+    def __exit__(self, *exc):
+        self.model._embed = self.orig
+
+
+def _layer_errors(a, b):
+    """max |a_i - b_i| / max |b_i| over the recorded layers' outputs."""
+    return [((x.float() - y.float()).abs().max() / y.float().abs().max()
+             ).item() for x, y in zip(a.outputs, b.outputs)]
+
+
+def _recurrent(dev, smi, results, arch):
+    """Phase 11 (a) zamba2-7b or (b) rwkv6-7b at full width and depth on
+    phase 2's trace, padded and bucketed, decode blocks 1 and 4: the same
+    tokens and the path's launches in every run, the first prefill group's
+    bf16 logits padded == bucketed bit for bit and within 5e-2 of the
+    largest logit of an fp32 einsum run on the same weights. (c) Every B1
+    and B2 call the runs recorded, against plain, timed, with B3a/B3b on
+    B1's and the bit identities (``_moe_kernel_checks``); at zamba2, B5 at
+    head dim 112 on the 2 x 1000 group's call. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import n_attn_applications
+    cfg = get_config(arch)
+    params = _init_model(cfg, dev, tag="recurrent")
+    trace, ranks, weights = _serve_trace(cfg, 8, dev)
+    rec = MainPathCalls(widths=True)
+    launches, engines = _moe_engine_runs(
+        dev, cfg, params, trace, weights,
+        [(m, db) for m in ("padded", "bucketed") for db in (1, 4)], smi, rec,
+        tag="recurrent")
+    # zamba2: d = d_out = 3584 on the shared block; rwkv6: 4096
+    seen = _widths_seen(rec.calls, "sgmv_fused_blocks")
+    assert seen == _lora_widths(cfg), seen
+    assert seen == _widths_seen(rec.calls, "sgmv_multibank_blocks")
+    # the first prefill group's bf16 logits: both banks bit for bit, and
+    # against fp32 on the same weights. These stacks amplify a rounding
+    # (at random init an input moved by one bf16 ulp moves rwkv6's logits
+    # ~2%, ROADMAP C13), and the reference rounds its activations to bf16
+    # at every op; so the fp32 run held within phase 6's 5e-2 computes
+    # every layer on the bf16 run's own input (``LayerReplay``), each
+    # layer's output and the logits are held, and the free fp32 run's
+    # distance is printed beside them.
+    with LayerReplay() as bf16_layers:
+        lg = _group_logits(cfg, engines["padded"], trace, 64)
+    assert torch.equal(lg, _group_logits(cfg, engines["bucketed"], trace,
+                                         64))
+    del engines
+    _free()
+    eng = _fp32_engine(cfg, params, ranks, weights, 72)
+    free = _group_logits(cfg, eng, trace, 64, kernel="einsum")
+    with LayerReplay(bf16_layers) as fp32_layers:
+        ref = _group_logits(cfg, eng, trace, 64, kernel="einsum")
+    with Perturbed(2.0 ** -9):
+        moved = _group_logits(cfg, eng, trace, 64, kernel="einsum")
+    del eng, params
+    _free()
+    layer_err = _layer_errors(bf16_layers, fp32_layers)
+    del bf16_layers, fp32_layers
+    scale = ref.abs().max().item()
+    err = (lg - ref).abs().max().item()
+    err_free = (lg - free).abs().max().item()
+    worst = max(range(len(layer_err)), key=layer_err.__getitem__)
+    err_moved = (moved - free).abs().max().item()
+    log(f"recurrent sensitivity {cfg.name}: the fp32 run with its embedded "
+        f"input moved by 2^-9 relative (one bf16 rounding) moves its logits "
+        f"by {err_moved:.4e} ({err_moved / scale:.3%} of max |logit|)")
+    log(f"recurrent logits {cfg.name} first prefill group (4 x 64): padded "
+        f"== bucketed bit for bit; bf16 vs fp32 on the same weights, every "
+        f"layer on the bf16 run's input: max abs diff {err:.4e} of max "
+        f"|logit| {scale:.4f} ({err / scale:.3%}; tol 5e-2 of it), argmax "
+        f"agree {(lg.argmax(-1) == ref.argmax(-1)).tolist()}; {len(layer_err)} "
+        f"layer outputs, worst {layer_err[worst]:.3%} of its max (layer call "
+        f"{worst}), median {statistics.median(layer_err):.3%}; fp32 running "
+        f"free: max abs diff {err_free:.4e} ({err_free / scale:.3%}), argmax "
+        f"agree {(lg.argmax(-1) == free.argmax(-1)).tolist()}")
+    assert torch.isfinite(ref).all() and torch.isfinite(free).all()
+    assert max(layer_err) <= 5e-2, layer_err
+    assert err <= 5e-2 * scale, (err, scale)
+    model = arch.split("-")[0]
+    _moe_kernel_checks(dev, model, rec.calls, results)
+    if n_attn_applications(cfg):
+        hd = cfg.resolved_head_dim
+        args, kw, _ = rec.calls[("flash_mha", "prefill", hd)]
+        assert tuple(args[0].shape) == (2, cfg.n_heads, 1000, hd), \
+            args[0].shape
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        _check_and_time("B5", f"{model}-prefill-hd{hd}", args, kw, None,
+                        flush, results)
+        del flush
+    return launches
+
+
+def _recurrent_pool(dev, smi):
+    """Phase 11 (d): ``LoRAServeCluster`` over an ``EngineBackend`` of 2
+    zamba2-7b engines with a ``UnifiedPagePool`` each (phase 8's
+    virtual-clock drive, bucketed): the tokens equal the same drive without
+    pools, every pool's invariant holds after the drain, its pages by kind
+    printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import adapter_weights, cluster_adapters
+    from repro_torch.serving import UnifiedPagePool
+    cfg = get_config(ZAMBA2)
+    params = _init_model(cfg, dev, tag="pool")
+    ranks = {a.adapter_id: a.rank for a in cluster_adapters(8)}
+    weights = adapter_weights(cfg, ranks, dtype=torch.bfloat16, device=dev,
+                              seed=3)
+    tokens = {}
+    for pooled in (False, True):
+        factory = (lambda: UnifiedPagePool(n_pages=4096)) if pooled else None
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        cluster, rep, trace, launches = _cluster_run(
+            cfg, params, weights, "bucketed", page_pool_factory=factory)
+        engines = _engines(cluster)
+        passes, groups = _cluster_launches(cfg, engines, "bucketed",
+                                           launches)
+        tokens[pooled] = _tokens(trace)
+        pools = [e.page_pool for e in engines]
+        if pooled:
+            assert len({id(p) for p in pools}) == len(engines) == 2
+            for sid, pool in enumerate(pools):
+                assert pool.check_invariant(), sid
+                kinds = pool.pages_by_kind()
+                assert kinds["kv"] == 0 and kinds["adapter"] > 0, kinds
+                log(f"pool server {sid}: pages_by_kind={kinds} used="
+                    f"{pool.used_pages}/{pool.n_pages} page_bytes="
+                    f"{pool.page_bytes} page_tokens={pool.page_tokens} "
+                    f"adapter_page_ins={pool.adapter_page_ins} "
+                    f"evictions={pool.adapter_evictions} invariant OK")
+        else:
+            assert pools == [None, None]
+        s = rep.summary
+        log(f"pool cluster {cfg.name} pooled={pooled} | {smi}: finished="
+            f"{rep.completed()}/{len(trace)} rebalances={rep.rebalances} "
+            f"model_passes={passes} prefill_groups={groups} launches "
+            f"{ {k: v for k, v in launches.items() if v} } p50_ttft_ms="
+            f"{s['p50_ttft'] * 1e3:.2f} p95_ttft_ms="
+            f"{s['p95_ttft'] * 1e3:.2f} mean_tbt_ms="
+            f"{s['mean_tbt'] * 1e3:.3f} wall_s={time.monotonic() - t0:.3f} "
+            f"peak_gb={torch.cuda.max_memory_allocated(dev) / 1e9:.2f}")
+        del cluster, engines, pools
+        _free()
+    assert tokens[True] == tokens[False]
+    log("pool: the pooled drive's tokens equal the drive without pools")
+    del params
+    _free()
+
+
+def _recurrent_launcher(dev, smi):
+    """Phase 11 (d): ``launch.serve --arch rwkv6-7b --config full
+    --servers 2`` as a subprocess."""
+    _moe_launcher(RWKV6, tag="recurrent")
+
+
+def _merged(dev, smi):
+    """Phase 11 (e): stablelm-1.6b at full width, one adapter of phase 2's
+    trace merged into the bf16 weights (``lora.adapter.merge_adapter``);
+    the first group's logits against the SGMV path (B1) on a bank that
+    holds that adapter alone, within 5e-2 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.lora import build_bank, merge_adapter
+    from repro_torch.models import model as M
+    cfg = get_config(STABLELM)
+    params = _init_model(cfg, dev, tag="merge")
+    trace, ranks, weights = _serve_trace(cfg, 4, dev)
+    group = [(aid, p) for aid, p, _ in trace if len(p) == 64]
+    aid = group[0][0]
+    toks = torch.tensor([p for _, p in group], device=dev)
+    bank = build_bank(cfg, {aid: ranks[aid]}, 0, dtype=torch.bfloat16,
+                      device=dev)
+    bank.set_adapter(aid, weights[aid])
+    rows = torch.zeros(len(group), dtype=torch.int32, device=dev)
+    lora, _ = M.prefill(cfg, params, toks, bank=bank.data,
+                        lora_idx=bank.lora_idx(rows), lora_kernel="sgmv")
+    base, _ = M.prefill(cfg, params, toks)
+    t0 = time.monotonic()
+    merged = merge_adapter(params, weights[aid], cfg)
+    torch.cuda.synchronize()
+    merge_s = time.monotonic() - t0
+    lm, _ = M.prefill(cfg, merged, toks)
+    shared = sum(a is b for a, b in zip(merged.parameters(),
+                                        params.parameters()))
+    del merged, params, bank
+    _free()
+    lora, lm, base = lora.float().cpu(), lm.float().cpu(), base.float().cpu()
+    assert torch.isfinite(lm).all()
+    scale = lora.abs().max().item()
+    err = (lm - lora).abs().max().item()
+    moved = (base - lora).abs().max().item()
+    log(f"merge {cfg.name} adapter {aid} (rank {ranks[aid]}) merged in "
+        f"{merge_s:.3f}s, {shared} parameters shared with the input | "
+        f"{smi}: first group ({len(group)} x 64) logits vs the SGMV path on "
+        f"a bank of that adapter alone: max abs diff {err:.4e} of max "
+        f"|logit| {scale:.4f} ({err / scale:.3%}; tol 5e-2 of it); the "
+        f"adapter moves them by {moved:.4e}; argmax agree "
+        f"{(lm.argmax(-1) == lora.argmax(-1)).tolist()}")
+    assert err <= 5e-2 * scale, (err, scale)
+    assert moved > err, (moved, err)
+
+
+def phase_recurrent(dev, smi):
+    """Phase 11. Returns (the launches of its main-path runs, the kernels'
+    results at the new widths)."""
+    results, launches = {}, {kid: 0 for kid in KERNELS}
+    for arch in (ZAMBA2, RWKV6):
+        t0 = time.monotonic()
+        for kid, n in _recurrent(dev, smi, results, arch).items():
+            launches[kid] += n
+        _free()
+        log(f"phase recurrent {arch}: {time.monotonic() - t0:.1f}s")
+    for part in (_recurrent_pool, _recurrent_launcher, _merged):
+        t0 = time.monotonic()
+        part(dev, smi)
+        _free()
+        log(f"phase recurrent {part.__name__}: "
+            f"{time.monotonic() - t0:.1f}s")
     return launches, results
 
 
@@ -2188,6 +2512,13 @@ def main() -> int:
         launches[kid] += n
     log(f"phase moe: {time.monotonic() - t0:.1f}s; launches "
         f"{ {k: v for k, v in moe_launches.items() if v} }")
+    t0 = time.monotonic()
+    rec_launches, rec_res = phase_recurrent(dev, smi)
+    kres.update(rec_res)
+    for kid, n in rec_launches.items():
+        launches[kid] += n
+    log(f"phase recurrent: {time.monotonic() - t0:.1f}s; launches "
+        f"{ {k: v for k, v in rec_launches.items() if v} }")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

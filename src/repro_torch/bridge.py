@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.lora.bank import LoRABank
-from repro_torch.models.model import DenseLM, init_params
+from repro_torch.models.model import BaseLM, DenseLM, init_params
 from repro_torch.serving.sharding import PARAM_SPLIT
 
 
@@ -22,28 +22,37 @@ def _t(a, device, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+def _copy_leaves(module, tree, i=None):
+    """Every parameter of ``module`` from the JAX subtree ``tree`` (a
+    dotted parameter name is a path in it; ``i`` picks layer i of a tree
+    stacked on a leading axis), each leaf in its parameter's own type: the
+    MoE router stays fp32 whatever the model's."""
+    for name, p in module.named_parameters():
+        leaf = tree
+        for key in name.split("."):
+            leaf = leaf[key]
+        p.copy_(_t(leaf if i is None else leaf[i], p.device, p.dtype))
+
+
 def params_from_numpy(cfg, tree, *, device="cuda",
-                      dtype=torch.float32) -> DenseLM:
-    """The JAX param tree of ``models/model.py:init_params`` (blocks
-    stacked on a leading layer axis), as numpy arrays -> a ``DenseLM``
-    (dense or MoE, GQA or MLA: the module attributes carry the JAX leaves'
-    names)."""
+                      dtype=torch.float32) -> BaseLM:
+    """The JAX param tree of ``models/model.py:init_params`` as numpy
+    arrays -> the port's model of ``cfg.family``: a ``DenseLM`` (dense or
+    MoE, GQA or MLA; ``blocks`` stacked on a leading layer axis), a
+    ``HybridLM`` (``mamba_blocks`` stacked, one ``shared_attn``) or an
+    ``RWKVLM`` (``blocks`` stacked). The modules' attributes carry the
+    JAX leaves' names."""
     dev = resolve_device(device)
     lm = init_params(cfg, 0, dtype=dtype, device=dev)   # then overwritten
     with torch.no_grad():
-        lm.embed.copy_(_t(tree["embed"], dev, dtype))
-        lm.ln_f.copy_(_t(tree["ln_f"], dev, dtype))
-        if not cfg.tie_embeddings:
-            lm.lm_head.copy_(_t(tree["lm_head"], dev, dtype))
-        blocks = tree["blocks"]
-        for i, bp in enumerate(lm.blocks):
-            bp.ln1.copy_(_t(blocks["ln1"][i], dev, dtype))
-            bp.ln2.copy_(_t(blocks["ln2"][i], dev, dtype))
-            # each leaf in its parameter's own type: the MoE router stays
-            # fp32 whatever ``dtype``
-            for sub in ("attn", "ffn"):
-                for name, p in getattr(bp, sub).named_parameters():
-                    p.copy_(_t(blocks[sub][name][i], dev, p.dtype))
+        for name, p in lm.named_parameters(recurse=False):
+            p.copy_(_t(tree[name], dev, p.dtype))
+        for name, child in lm.named_children():
+            if isinstance(child, torch.nn.ModuleList):
+                for i, block in enumerate(child):
+                    _copy_leaves(block, tree[name], i)
+            else:
+                _copy_leaves(child, tree[name])
     return lm
 
 

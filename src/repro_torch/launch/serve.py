@@ -64,7 +64,8 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import POLICIES, AdapterInfo, ServeRequest
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_engine_mesh, spawn
-from repro_torch.lora.adapter import _target_in_dim, _target_out_dim
+from repro_torch.lora.adapter import (_target_in_dim, _target_out_dim,
+                                      bank_layers)
 from repro_torch.models import model as M
 from repro_torch.serving import (EngineBackend, LoRAServeCluster, Request,
                                  ServingEngine)
@@ -123,9 +124,10 @@ def serve(cfg, params, trace, *, bank_mode="padded", lora_kernel="sgmv",
 def adapter_weights(cfg, ranks, *, dtype, device, seed):
     """Nonzero A ~ N(0, 1/d) and B ~ N(0, 0.25/r) per adapter id, from
     one ``torch.Generator``, at each target's own widths (d_in, d_out:
-    ``lora.adapter._target_in_dim`` / ``_target_out_dim``)."""
+    ``lora.adapter._target_in_dim`` / ``_target_out_dim``) and the bank's
+    layers (``lora.adapter.bank_layers``: one for the hybrid family)."""
     g = torch.Generator(device=device).manual_seed(seed)
-    L, d = cfg.n_layers, cfg.d_model
+    L, d = bank_layers(cfg), cfg.d_model
     return {aid: {t: {"A": (torch.randn((L, _target_in_dim(cfg, t), r),
                                         generator=g, device=device)
                             / d ** 0.5).to(dtype),
@@ -349,17 +351,20 @@ def make_cluster(cfg, params, adapters, weights, n_servers: int, *,
                  rebalance_period: float = 1.5, access_mode: str = "migrate",
                  prefetch: bool = False, controller=None, fault_plan=None,
                  detector_window: float = 0.5, mesh_shape=None,
-                 tracer=None, flight_recorder=None, device="cuda"):
+                 tracer=None, flight_recorder=None, page_pool_factory=None,
+                 device="cuda"):
     """``LoRAServeCluster`` over a ``SeededWeightsBackend`` of ``n_servers``
     engines that share ``params``, set up as the JAX package's launcher
     sets up its cluster (``tracer``, ``flight_recorder``: the span layer,
-    ``repro_torch.obs``). Building it places the adapters and builds the
+    ``repro_torch.obs``; ``page_pool_factory``: a unified page pool for
+    each engine). Building it places the adapters and builds the
     engines."""
     backend = SeededWeightsBackend(
         cfg, params, n_servers, weights=weights, max_batch=max_batch,
         max_len=max_len, seed=seed, bank_mode=bank_mode,
         decode_block=decode_block, lora_kernel=lora_kernel,
-        mesh_shape=mesh_shape, device=device)
+        mesh_shape=mesh_shape, page_pool_factory=page_pool_factory,
+        device=device)
     return LoRAServeCluster(
         backend, adapters, policy=policy, network=NetworkModel(),
         rebalance_period=rebalance_period, seed=seed,

@@ -35,6 +35,13 @@ class Adapter:
         return 2 * total * cfg.n_layers  # 2 bytes / param
 
 
+def bank_layers(cfg) -> int:
+    """Layers of a serving bank: one for the hybrid family (its adapters
+    sit on the shared attention block, which every application reuses),
+    else one per layer."""
+    return 1 if cfg.family == "hybrid" else cfg.n_layers
+
+
 def _target_out_dim(cfg, target: str) -> int:
     hd = cfg.resolved_head_dim or cfg.d_model
     H, Kv = cfg.n_heads or 1, cfg.n_kv_heads or 1
@@ -122,6 +129,42 @@ def pad_adapter(adapter, max_r: int):
     return {t: {"A": F.pad(w["A"], (0, max_r - w["A"].shape[-1])),
                 "B": F.pad(w["B"], (0, 0, 0, max_r - w["B"].shape[-2]))}
             for t, w in adapter.items()}
+
+
+def merge_adapter(params, adapter, cfg, scaling: float = 1.0):
+    """Merge one adapter ``{target: {"A": (L, d_in, r), "B": (L, r,
+    d_out)}}`` into the base weights (the paper's note on serving a very
+    hot adapter from a dedicated instance with no LoRA cost): each layer's
+    ``wq``/``wk``/``wv``/``wo`` gains scaling * (A @ B), the product cast
+    to the weight's type before it is scaled and added, as the JAX
+    package's ``merge_adapter`` does. A target whose weight the attention
+    lacks (MLA's k and v) is skipped.
+
+    Returns a new model: the merged weights are new tensors, every other
+    parameter is shared with ``params``, which is left as it was. Only a
+    uniform stack of attention blocks is taken (the dense and MoE
+    families): a tree without ``blocks`` of them raises ``ValueError``."""
+    import copy
+    blocks = getattr(params, "blocks", None)
+    if blocks is None or not all(hasattr(b, "attn") for b in blocks):
+        raise ValueError("merge_adapter supports uniform-stack archs "
+                         f"(blocks of attention), not {cfg.family!r}")
+    names = {t: w for t, w in (("q", "wq"), ("k", "wk"), ("v", "wv"),
+                               ("o", "wo")) if t in adapter}
+    merged_ids = {id(getattr(b.attn, w)) for b in blocks
+                  for w in names.values() if hasattr(b.attn, w)}
+    # deepcopy shares every parameter it finds in the memo
+    memo = {id(p): p for p in params.parameters() if id(p) not in merged_ids}
+    merged = copy.deepcopy(params, memo)
+    with torch.no_grad():
+        for t, w_name in names.items():
+            delta = torch.einsum("ldr,lro->ldo", adapter[t]["A"],
+                                 adapter[t]["B"])
+            for i, bp in enumerate(merged.blocks):
+                w = getattr(bp.attn, w_name, None)
+                if w is not None:
+                    w.copy_(w + scaling * delta[i].to(w.device, w.dtype))
+    return merged
 
 
 def _leaves(tree):

@@ -1,28 +1,44 @@
-"""Model assembly of the PyTorch port for the dense and MoE families:
-init, prefill and decode (the ``dense``/``moe`` branches of the JAX
-package's ``models/model.py``, which run both on one runner).
+"""Model assembly of the PyTorch port: init, prefill and decode for the
+dense, MoE, hybrid and SSM families (the matching branches of the JAX
+package's ``models/model.py``).
 
-Parameters live in ``nn.Module``s (``DenseLM`` > ``DenseBlock`` >
-``GQAAttention`` or ``MLAAttention``, ``SwiGLU`` or ``MoE``, chosen as
-the JAX ``_init_dense_block`` chooses: MLA when ``cfg.mla`` is set, MoE
-when ``cfg.moe`` is) in the JAX layout, weights (d_in, d_out) used as
-``x @ w``. The layer stack is a Python loop over ``blocks`` where JAX
-scans. Cache dict keys, as in the JAX package:
+Parameters live in ``nn.Module``s in the JAX layout, weights (d_in,
+d_out) used as ``x @ w``, each module's attributes named as the JAX
+tree's leaves:
+  * ``DenseLM`` > ``DenseBlock`` > ``GQAAttention`` or ``MLAAttention``,
+    ``SwiGLU`` or ``MoE``, chosen as the JAX ``_init_dense_block``
+    chooses (MLA when ``cfg.mla`` is set, MoE when ``cfg.moe`` is);
+  * ``HybridLM`` (zamba2): ``mamba_blocks`` (``ssm.Mamba2``, one a
+    layer) and one ``shared_attn`` ``DenseBlock`` applied before every
+    segment of ``cfg.attn_every`` Mamba2 layers (``_hybrid_segments``);
+  * ``RWKVLM``: ``blocks`` of ``ssm.RWKV6``.
+The layer stack is a Python loop where JAX scans. Cache dict keys, as in
+the JAX package:
   pos   : (B,) int32 — tokens currently in the cache per row
-  k, v  : (L, B, S, Kv, hd) self-attention KV
+  k, v  : (L_attn, B, S, Kv, hd) self-attention KV (L_attn =
+          ``n_attn_applications``: every layer, or every application of
+          the hybrid's shared block)
   c, kr : (L, B, S, kv_lora_rank) / (L, B, S, rope) MLA's compressed
           cache, in place of k and v
-``decode_step`` writes each layer's new entries into the given cache
-tensors in place (JAX returns new arrays) and returns a dict with a new
-``pos``. Serving ignores the MoE layers' balance loss, as the JAX
-prefill and decode do.
+  ssm   : (L, B, H, hd, N) Mamba2 state
+  wkv, x_tm, x_cm : RWKV-6 state (L, B, H, hd, hd) fp32 and the token
+          shifts (L, B, d)
+``prefill`` and ``decode_step`` write each layer's entries into the cache
+tensors in place (JAX returns new arrays) and return a dict with a new
+``pos``. Serving ignores the MoE layers' balance loss, as the JAX prefill
+and decode do.
+
+The hybrid's LoRA bank holds one layer, the shared block's, and the same
+callback serves every application of it. RWKV-6 takes its adapters on
+the receptance (the ``q`` target), key, value and output projections.
 
 ``tp`` (a ``launch.mesh.TensorParallel``, optional) runs a rank of a
 tensor-parallel model: ``params`` is the rank's slice
 (``serving.sharding.EngineSharding.shard_params``), the cache holds its
 kv heads, and the LoRA bank its co-sharded slice. Embedding, norms and
 ``lm_head`` are replicated, and the hidden state after every all-reduce
-is the same on every rank, so every rank computes the same logits.
+is the same on every rank, so every rank computes the same logits. Only
+the dense family is sharded.
 """
 from __future__ import annotations
 
@@ -38,18 +54,41 @@ from .attention import (GQAAttention, MLAAttention, gqa_decode, gqa_full,
                         mla_decode, mla_full)
 from .common import dense_init, rmsnorm, tp_size
 from .ffn import MoE, SwiGLU, moe_ffn
+from .ssm import (Mamba2, RWKV6, mamba2_full, mamba2_state, mamba2_step,
+                  mamba_dims, rwkv6_channel_mix, rwkv6_state,
+                  rwkv6_time_mix)
+
+# family -> the state-space kind it needs (None: no ``cfg.ssm``)
+_FAMILIES = {"dense": None, "moe": None, "hybrid": "mamba2", "ssm": "rwkv6"}
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.ssm is not None:
+    kind = cfg.ssm.kind if cfg.ssm is not None else None
+    if cfg.family not in _FAMILIES or kind != _FAMILIES[cfg.family]:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the dense "
-            "and MoE families are, the others are ROADMAP queue A item 10")
+            f"{cfg.name}: family {cfg.family!r} (ssm {kind!r}) is not "
+            "ported; the dense, MoE, hybrid (mamba2) and SSM (rwkv6) "
+            "families are, VLM and audio are ROADMAP queue A item 10")
 
 
 def _cache_keys(cfg):
     """The two per-layer cache entries of an attention layer."""
     return ("c", "kr") if cfg.mla is not None else ("k", "v")
+
+
+def n_attn_applications(cfg) -> int:
+    """Number of self-attention cache entries (the k/v leading dim)."""
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.attn_every)
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
+
+
+def _hybrid_segments(cfg):
+    """[(start, n_mamba_layers)], one per shared-attention application."""
+    return [(start, min(cfg.attn_every, cfg.n_layers - start))
+            for start in range(0, cfg.n_layers, cfg.attn_every)]
 
 
 class DenseBlock(nn.Module):
@@ -66,8 +105,8 @@ class DenseBlock(nn.Module):
             SwiGLU(d, cfg.d_ff, gen, dtype)
 
 
-class DenseLM(nn.Module):
-    """embed: (V, d); ln_f: (d,); lm_head: (d, V) unless tied; blocks."""
+class BaseLM(nn.Module):
+    """embed: (V, d); ln_f: (d,); lm_head: (d, V) unless tied."""
 
     def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
         super().__init__()
@@ -82,22 +121,54 @@ class DenseLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, (d, V), dtype=dtype),
                                         requires_grad=False)
+
+
+class DenseLM(BaseLM):
+    """The dense and MoE families: ``blocks`` of ``DenseBlock``."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__(cfg, gen, dtype)
         self.blocks = nn.ModuleList(DenseBlock(cfg, gen, dtype)
                                     for _ in range(cfg.n_layers))
 
 
+class HybridLM(BaseLM):
+    """zamba2: ``mamba_blocks`` (one ``Mamba2`` a layer) and one
+    ``shared_attn`` ``DenseBlock``."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__(cfg, gen, dtype)
+        self.mamba_blocks = nn.ModuleList(Mamba2(cfg, gen, dtype)
+                                          for _ in range(cfg.n_layers))
+        self.shared_attn = DenseBlock(cfg, gen, dtype)
+
+
+class RWKVLM(BaseLM):
+    """RWKV-6: ``blocks`` of ``RWKV6``."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__(cfg, gen, dtype)
+        self.blocks = nn.ModuleList(RWKV6(cfg, gen, dtype)
+                                    for _ in range(cfg.n_layers))
+
+
+_LM_CLASS = {"dense": DenseLM, "moe": DenseLM, "hybrid": HybridLM,
+             "ssm": RWKVLM}
+
+
 def init_params(cfg, seed: int = 0, *, dtype=torch.float32,
-                device="cuda") -> DenseLM:
+                device="cuda") -> BaseLM:
     """Random base weights from one ``torch.Generator`` on ``device``
     (not the JAX package's numbers: tests carry weights across with
-    ``repro_torch.bridge``)."""
+    ``repro_torch.bridge``): a ``DenseLM``, ``HybridLM`` or ``RWKVLM`` by
+    ``cfg.family``."""
     _check_family(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    return DenseLM(cfg, gen, dtype)
+    return _LM_CLASS[cfg.family](cfg, gen, dtype)
 
 
-def lm_head(cfg, params: DenseLM):
+def lm_head(cfg, params: BaseLM):
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
@@ -142,7 +213,23 @@ def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
     return x + _ffn(cfg, bp, x, tp)
 
 
-def _embed(params: DenseLM, tokens):
+def _rwkv_block(cfg, bp: RWKV6, x, st, lora):
+    h, st_tm = rwkv6_time_mix(cfg, bp, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
+                              st, lora)
+    x = x + h
+    h2, st_cm = rwkv6_channel_mix(cfg, bp,
+                                  rmsnorm(x, bp.ln2, cfg.rmsnorm_eps), st)
+    return x + h2, {**st_tm, **st_cm}
+
+
+def _mamba_layer(cfg, bp: Mamba2, x, state, step: bool):
+    """x + the Mamba2 block on rmsnorm(x); returns (x, new state)."""
+    fn = mamba2_step if step else mamba2_full
+    out, st = fn(cfg, bp, rmsnorm(x, bp.ln, cfg.rmsnorm_eps), state)
+    return x + out, st
+
+
+def _embed(params: BaseLM, tokens):
     return params.embed[tokens.long()]
 
 
@@ -151,19 +238,29 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
     """Zeroed cache dict. max_len should already account for any sliding
     window (callers pass min(seq, window)). At tp > 1 it holds this rank's
     n_kv_heads / tp kv heads (the JAX package's kv-head-sharded
-    "baseline" cache layout), and no full cache is ever made."""
+    "baseline" cache layout), and no full cache is ever made. The WKV
+    state is fp32 whatever ``dtype``, as in the JAX package."""
     _check_family(cfg)
     dev = resolve_device(device)
-    lead = (cfg.n_layers, batch, max_len)
+    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    n_attn = n_attn_applications(cfg)
+    lead = (n_attn, batch, max_len)
+    shapes = {}
     if cfg.mla is not None:
         m = cfg.mla
-        shapes = (lead + (m.kv_lora_rank,), lead + (m.qk_rope_head_dim,))
-    else:
+        shapes = {"c": lead + (m.kv_lora_rank,),
+                  "kr": lead + (m.qk_rope_head_dim,)}
+    elif n_attn:
         kv = lead + (cfg.n_kv_heads // tp_size(tp), cfg.resolved_head_dim)
-        shapes = (kv, kv)
-    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
-    for name, shape in zip(_cache_keys(cfg), shapes):
+        shapes = {"k": kv, "v": kv}
+    if cfg.family == "hybrid":
+        _, H, hd, N = mamba_dims(cfg)
+        shapes["ssm"] = (cfg.n_layers, batch, H, hd, N)
+    for name, shape in shapes.items():
         cache[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.family == "ssm":
+        for name, t in rwkv6_state(cfg, batch, dtype, dev).items():
+            cache[name] = t.new_zeros((cfg.n_layers,) + t.shape)
     return cache
 
 
@@ -182,7 +279,56 @@ def _write_prefill_kv(kvs, cache_arr, window):
     return cache_arr
 
 
-def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
+def _write_kv(cfg, cache, i, kv, window):
+    """Layer (or application) ``i``'s prefill K/V into the cache, one at a
+    time (no stacked (L, ...) copy)."""
+    for name, t in zip(_cache_keys(cfg), kv):
+        _write_prefill_kv(t[None], cache[name][i:i + 1], window)
+
+
+def _run_dense_full(cfg, params: DenseLM, x, cache, *, window, bank,
+                    lora_idx, lora_kernel, tp):
+    for i, bp in enumerate(params.blocks):
+        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
+                            kernel=lora_kernel, tp=tp)
+        x, kv = _dense_block_full(cfg, bp, x, window, lora, tp)
+        _write_kv(cfg, cache, i, kv, window)
+    return x
+
+
+def _run_hybrid_full(cfg, params: HybridLM, x, cache, *, window, bank,
+                     lora_idx, lora_kernel, tp):
+    # one bank layer: the shared block's adapters at every application
+    lora = make_lora_cb(bank_layer(bank, 0), lora_idx, kernel=lora_kernel,
+                        tp=tp)
+    for i, (start, size) in enumerate(_hybrid_segments(cfg)):
+        x, kv = _dense_block_full(cfg, params.shared_attn, x, window, lora,
+                                  tp)
+        _write_kv(cfg, cache, i, kv, window)
+        for j in range(start, start + size):
+            x, cache["ssm"][j] = _mamba_layer(
+                cfg, params.mamba_blocks[j], x,
+                mamba2_state(cfg, x.shape[0], device=x.device), step=False)
+    return x
+
+
+def _run_rwkv_full(cfg, params: RWKVLM, x, cache, *, window, bank,
+                   lora_idx, lora_kernel, tp):
+    st0 = rwkv6_state(cfg, x.shape[0], x.dtype, x.device)
+    for i, bp in enumerate(params.blocks):
+        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
+                            kernel=lora_kernel, tp=tp)
+        x, st = _rwkv_block(cfg, bp, x, st0, lora)
+        for name, t in st.items():
+            cache[name][i] = t
+    return x
+
+
+_RUN_FULL = {"dense": _run_dense_full, "moe": _run_dense_full,
+             "hybrid": _run_hybrid_full, "ssm": _run_rwkv_full}
+
+
+def prefill(cfg, params: BaseLM, tokens, *, bank=None, lora_idx=None,
             cache_len: Optional[int] = None, window: Optional[int] = None,
             cache_dtype=None, lora_kernel="einsum", tp=None):
     """Prefill a batch of same-length rows. Returns (last_logits (B,V),
@@ -194,36 +340,78 @@ def prefill(cfg, params: DenseLM, tokens, *, bank=None, lora_idx=None,
     x = _embed(params, tokens)
     cache = init_cache(cfg, B, cache_len, cache_dtype or params.embed.dtype,
                        device=tokens.device, tp=tp)
-    for i, bp in enumerate(params.blocks):
-        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel, tp=tp)
-        x, kv = _dense_block_full(cfg, bp, x, window, lora, tp)
-        # one layer at a time into the cache (no stacked (L, ...) copy)
-        for name, t in zip(_cache_keys(cfg), kv):
-            _write_prefill_kv(t[None], cache[name][i:i + 1], window)
+    x = _RUN_FULL[cfg.family](cfg, params, x, cache, window=window,
+                              bank=bank, lora_idx=lora_idx,
+                              lora_kernel=lora_kernel, tp=tp)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
     h_last = rmsnorm(x[:, -1], params.ln_f, cfg.rmsnorm_eps)
     return h_last.float() @ lm_head(cfg, params).float(), cache
 
 
-def decode_step(cfg, params: DenseLM, cache, tokens, *, bank=None,
-                lora_idx=None, window: Optional[int] = None,
-                mla_absorbed=False, lora_kernel="einsum", tp=None):
-    """One decode step. tokens: (B,) int. Returns (logits (B,V), cache):
-    the K/V (or c/kr) tensors of ``cache`` are updated in place, ``pos``
-    is new. ``mla_absorbed`` selects MLA's absorbed decode (the engine's
-    is the naive expand)."""
-    _check_family(cfg)
-    window = cfg.sliding_window if window is None else window
-    pos = cache["pos"]
+def _decode_dense(cfg, params: DenseLM, cache, x, pos, *, window, bank,
+                  lora_idx, lora_kernel, tp, mla_absorbed):
     ka, kb = _cache_keys(cfg)
-    x = _embed(params, tokens[:, None])
     for i, bp in enumerate(params.blocks):
         lora = make_lora_cb(bank_layer(bank, i), lora_idx,
                             kernel=lora_kernel, tp=tp)
         x = _dense_block_decode(cfg, bp, x, cache[ka][i], cache[kb][i],
                                 pos, window, lora, tp, mla_absorbed)
+    return x
+
+
+def _decode_hybrid(cfg, params: HybridLM, cache, x, pos, *, window, bank,
+                   lora_idx, lora_kernel, tp, mla_absorbed):
+    lora = make_lora_cb(bank_layer(bank, 0), lora_idx, kernel=lora_kernel,
+                        tp=tp)
+    for i, (start, size) in enumerate(_hybrid_segments(cfg)):
+        x = _dense_block_decode(cfg, params.shared_attn, x, cache["k"][i],
+                                cache["v"][i], pos, window, lora, tp)
+        for j in range(start, start + size):
+            # the state comes back in x's type and is stored in the cache's
+            x, cache["ssm"][j] = _mamba_layer(
+                cfg, params.mamba_blocks[j], x, cache["ssm"][j], step=True)
+    return x
+
+
+def _decode_rwkv(cfg, params: RWKVLM, cache, x, pos, *, window, bank,
+                 lora_idx, lora_kernel, tp, mla_absorbed):
+    for i, bp in enumerate(params.blocks):
+        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
+                            kernel=lora_kernel, tp=tp)
+        # The token shifts hold activations of x's type; a cache of
+        # another type gives them back in it (exactly: they were x's
+        # type when stored). The JAX decode takes them in the cache's
+        # type, and with bf16 weights over an fp32 cache its layer scan
+        # refuses the fp32 residual that follows (ROADMAP C12).
+        st = {"wkv": cache["wkv"][i],
+              "x_tm": cache["x_tm"][i].to(x.dtype),
+              "x_cm": cache["x_cm"][i].to(x.dtype)}
+        x, st = _rwkv_block(cfg, bp, x, st, lora)
+        for name, t in st.items():
+            cache[name][i] = t
+    return x
+
+
+_DECODE = {"dense": _decode_dense, "moe": _decode_dense,
+           "hybrid": _decode_hybrid, "ssm": _decode_rwkv}
+
+
+def decode_step(cfg, params: BaseLM, cache, tokens, *, bank=None,
+                lora_idx=None, window: Optional[int] = None,
+                mla_absorbed=False, lora_kernel="einsum", tp=None):
+    """One decode step. tokens: (B,) int. Returns (logits (B,V), cache):
+    the tensors of ``cache`` are updated in place, ``pos`` is new.
+    ``mla_absorbed`` selects MLA's absorbed decode (the engine's is the
+    naive expand)."""
+    _check_family(cfg)
+    window = cfg.sliding_window if window is None else window
+    pos = cache["pos"]
+    x = _embed(params, tokens[:, None])
+    x = _DECODE[cfg.family](cfg, params, cache, x, pos, window=window,
+                            bank=bank, lora_idx=lora_idx,
+                            lora_kernel=lora_kernel, tp=tp,
+                            mla_absorbed=mla_absorbed)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     h_last = rmsnorm(x[:, 0], params.ln_f, cfg.rmsnorm_eps)

@@ -11,8 +11,9 @@ adapter subset first placed on it, every one over the SAME ``params``
 (one copy of the base weights however many servers share the device).
 Time is wall-clock seconds since ``start()``. Differences from the JAX
 class: ``device`` (default ``"cuda"``) goes to every engine;
-``lora_kernel`` defaults to the port's ``"sgmv"``; ``mesh_shape`` and
-``page_pool_factory`` are refused (not ported); ``memory_profile``
+``lora_kernel`` defaults to the port's ``"sgmv"``; ``mesh_shape`` is
+refused (not ported); ``page_pool_factory`` gives each engine a pool of
+its own, as in the JAX package; ``memory_profile``
 reports the bytes of the bank the engine holds, which is built in the
 params' dtype (half the JAX package's fp32 bytes at bf16).
 
@@ -385,11 +386,8 @@ class EngineBackend:
                 f"mesh_shape={mesh_shape}: the port's tensor parallelism "
                 "runs one process per rank, and wall-clock routing would "
                 "diverge between ranks (ROADMAP A9)")
-        if page_pool_factory is not None:
-            raise NotImplementedError(
-                "page_pool_factory: the unified page pool is not ported "
-                "yet (ROADMAP A6)")
         self._engine_cls = ServingEngine
+        self._page_pool_factory = page_pool_factory
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -508,12 +506,15 @@ class EngineBackend:
         if not adapter_ranks:
             return
         if self.engines[server_id] is None:
+            pool = (self._page_pool_factory()
+                    if self._page_pool_factory else None)
             self.engines[server_id] = self._engine_cls(
                 self.cfg, self.params, dict(adapter_ranks),
                 max_batch=self.max_batch, max_len=self.max_len,
                 seed=self.seed, bank_mode=self.bank_mode,
                 decode_block=self.decode_block,
-                lora_kernel=self.lora_kernel, clock=self.wall_now,
+                lora_kernel=self.lora_kernel, page_pool=pool,
+                clock=self.wall_now,
                 tracer=self.tracer, server_id=server_id,
                 device=self.device)
         else:

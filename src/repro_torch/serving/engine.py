@@ -28,8 +28,21 @@ co-sharded bank (``serving.sharding``). The bank is sharded again after
 every rebuild and install. Bank kernels at tp > 1: B3a/B3b (padded) and
 B4a/B4b (bucketed). Tokens are identical on every rank (the hidden state
 after each all-reduce is), and match the single-device engine's by token,
-not by bit: the all-reduce reorders the d-sums. Not ported: the page
-pool, data parallelism, the VLM and audio frontends (ROADMAP).
+not by bit: the all-reduce reorders the d-sums. Not ported: data
+parallelism, the VLM and audio frontends (ROADMAP).
+
+``page_pool`` (a ``serving.paging.UnifiedPagePool``, optional) keeps the
+accounts of the unified paging the JAX engine keeps: KV pages for each
+admitted sequence and the adapter's pages (paged in on first use,
+pinned while co-batched) at prefill, growth page by page as tokens are
+decoded, and their release when a request finishes or is cancelled. It
+only keeps accounts: the cache and the bank are the tensors above.
+
+The hybrid family's bank holds one layer, the shared attention block's
+(``lora.adapter.bank_layers``); recurrent state (Mamba2's ``ssm``,
+RWKV-6's ``wkv``/``x_tm``/``x_cm``) is scattered into the slots at
+prefill as the KV cache is, and a free slot's state runs on in decode
+until a prefill overwrites it.
 """
 from __future__ import annotations
 
@@ -40,10 +53,12 @@ import torch
 
 from repro_torch.core.request import Phase, ServeRequest
 from repro_torch.device import resolve_device
+from repro_torch.lora.adapter import Adapter, bank_layers
 from repro_torch.lora.bank import build_bank, rank_bucket
 from repro_torch.models import model as M
 
 from .metrics import MetricsCollector
+from .paging import UnifiedPagePool
 from .sharding import make_engine_sharding
 
 Request = ServeRequest
@@ -54,7 +69,8 @@ class ServingEngine:
                  *, max_batch: int = 8, max_len: int = 512,
                  seed: int = 0, bank_mode: str = "padded",
                  decode_block: int = 1, lora_kernel: str = "sgmv",
-                 mesh=None, clock: Callable[[], float] = time.monotonic,
+                 mesh=None, page_pool: Optional[UnifiedPagePool] = None,
+                 clock: Callable[[], float] = time.monotonic,
                  tracer=None, server_id: int = 0, device="cuda"):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
@@ -76,6 +92,7 @@ class ServingEngine:
         self.bank_mode = bank_mode
         self.decode_block = decode_block
         self.lora_kernel = lora_kernel
+        self.page_pool = page_pool
         self.params = params
         self.max_batch = max_batch
         self.max_len = max_len
@@ -110,7 +127,7 @@ class ServingEngine:
         # changes no number and at bf16 saves casting the bank every step.
         self.lora_bank = build_bank(self.cfg, adapter_ranks, self._bank_seed,
                                     mode=self.bank_mode,
-                                    n_layers=self.cfg.n_layers,
+                                    n_layers=bank_layers(self.cfg),
                                     dtype=self.params.embed.dtype,
                                     device=self.device)
         if self.sharding is not None:
@@ -218,6 +235,9 @@ class ServingEngine:
         t0 = self._clock()
         n = len(grp)
         aidx = [self._adapter_idx[req.adapter_id] for _, req in grp]
+        if self.page_pool is not None:
+            for ai, (_, req) in zip(aidx, grp):
+                self._page_in(req, ai, length)
         toks = torch.tensor([req.prompt for _, req in grp],
                             dtype=torch.int32, device=self.device)
         aidx_t = torch.tensor(aidx, dtype=torch.int32, device=self.device)
@@ -251,9 +271,30 @@ class ServingEngine:
             self.tracer.record("prefill", t0, t, cat="iteration",
                                track=self._track, attrs=attrs)
 
+    def _page_in(self, req: ServeRequest, ai: int, length: int) -> None:
+        """Unified paging at admission: KV pages for the prompt, and the
+        adapter's pages (paged in on first use, pinned while
+        co-batched). The adapter's bytes are ``Adapter.nbytes``, the
+        placement's formula; a hybrid bank holds one layer of them."""
+        self.page_pool.alloc_kv(f"req{req.req_id}", length)
+        nbytes = Adapter(req.adapter_id, self.ranks[ai]).nbytes(self.cfg)
+        if self.cfg.family == "hybrid":
+            nbytes = max(1, nbytes // self.cfg.n_layers)
+        self.page_pool.ensure_adapter(req.adapter_id, nbytes)
+        self.page_pool.pin_adapter(req.adapter_id)
+
+    def _page_out(self, req: ServeRequest) -> None:
+        """Free a finished or cancelled request's KV pages; unpin its
+        adapter when no slot holds another of its requests."""
+        self.page_pool.free_kv(f"req{req.req_id}")
+        if not any(r is not None and r.adapter_id == req.adapter_id
+                   for r in self.slots):
+            self.page_pool.pin_adapter(req.adapter_id, False)
+
     def _merge_many(self, cache1, slots, length: int) -> None:
         """Scatter n freshly prefilled rows (batch axis 1 everywhere but
-        "pos") into their slots, in place."""
+        "pos": KV and recurrent state alike) into their slots, in
+        place."""
         for k, v in self.cache.items():
             if k == "pos":
                 v[slots] = length
@@ -265,6 +306,9 @@ class ServingEngine:
         """Record one decoded token for a slot; free the slot if done."""
         req.output.append(token)
         self.tokens_decoded += 1
+        if self.page_pool is not None:
+            self.page_pool.grow_kv(f"req{req.req_id}",
+                                   len(req.prompt) + len(req.output))
         done = len(req.output) >= req.max_new_tokens
         if done or len(req.prompt) + len(req.output) >= self.max_len:
             req.phase = Phase.DONE
@@ -273,6 +317,8 @@ class ServingEngine:
             self.metrics.record(req)
             self.completed.append(req)
             self.slots[slot] = None
+            if self.page_pool is not None:
+                self._page_out(req)
 
     def _decode_fn(self, tokens):
         logits, self.cache = M.decode_step(
@@ -366,7 +412,9 @@ class ServingEngine:
 
     def cancel(self, req_id: int) -> Optional[ServeRequest]:
         """Abort a live request: drop it from the queue, or free its batch
-        slot. Returns the request, or None if it is not live here."""
+        slot (and its KV pages, and the adapter's pin if it was the last
+        co-batched user). Returns the request, or None if it is not live
+        here."""
         for r in self.queue:
             if r.req_id == req_id:
                 self.queue = [q for q in self.queue if q is not r]
@@ -374,6 +422,8 @@ class ServingEngine:
         for slot, r in enumerate(self.slots):
             if r is not None and r.req_id == req_id:
                 self.slots[slot] = None
+                if self.page_pool is not None:
+                    self._page_out(r)
                 return r
         return None
 

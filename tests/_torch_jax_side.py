@@ -1,10 +1,10 @@
 """Helpers shared by the PyTorch port's serving and model tests (imported
 by ``test_torch_cluster.py``, ``test_torch_obs.py``, ``test_torch_server.py``,
-``test_torch_sim.py``, ``test_torch_moe.py``, ``test_torch_mla.py`` and
-``test_torch_configs.py``): the JAX side of a parity run with the same
-seeded adapter weights as the port's, nonzero adapter weights at every
-target's own widths, and a plain form of two packages' results for
-comparing them."""
+``test_torch_sim.py``, ``test_torch_moe.py``, ``test_torch_mla.py``,
+``test_torch_configs.py`` and the recurrent, paging and merge tests): the
+JAX side of a parity run with the same seeded adapter weights as the
+port's, nonzero adapter weights at every target's own widths, and a plain
+form of two packages' results for comparing them."""
 import dataclasses
 import enum
 import math
@@ -104,9 +104,11 @@ def nonzero_weights(cfg, ranks, seed, scale=0.2):
     """Adapter weights ``{adapter: {target: {"A": (L, d_in, r), "B": (L, r,
     d_out)}}}`` as fp32 numpy from a seed, every entry nonzero (a fresh
     bank's B is zero, ROADMAP C1), at each target's widths (MLA's q, k/v
-    and o differ from d_model; so do GQA's k and v)."""
+    and o differ from d_model; so do GQA's k and v). L is the serving
+    bank's: one layer for the hybrid family (the JAX engine's
+    ``_rebuild_bank``), else ``n_layers``."""
     rng = np.random.default_rng(seed)
-    L = cfg.n_layers
+    L = 1 if cfg.family == "hybrid" else cfg.n_layers
     return {aid: {t: {"A": (rng.standard_normal(
                           (L, _target_in_dim(cfg, t), r)) * scale
                           ).astype(np.float32),

@@ -247,9 +247,7 @@ def test_drain_completed_matches_jax(setup):
 
 @pytest.mark.parametrize("kw, exc", [
     ({"device": "cuda"}, RuntimeError),
-    ({"device": "cpu", "mesh_shape": (1, 2)}, NotImplementedError),
-    ({"device": "cpu", "page_pool_factory": lambda: None},
-     NotImplementedError)])
+    ({"device": "cpu", "mesh_shape": (1, 2)}, NotImplementedError)])
 def test_engine_backend_refusals(setup, kw, exc, monkeypatch):
     # "cuda" must raise even on a machine with a card: pretend it has none
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -53,10 +53,11 @@ def _close(t, j):
 
 def test_registry_holds_the_ported_families_only():
     ported = {"llama-7b-paper", "deepseek-v2-lite-16b",
-              "llama4-scout-17b-a16e", *DENSE}
+              "llama4-scout-17b-a16e", "zamba2-7b", "rwkv6-7b", *DENSE}
     assert set(tcfg.ARCH_IDS) == ported
     for arch in sorted(set(jcfg.ARCH_IDS) - ported):
-        assert jcfg.get_config(arch).family not in ("dense", "moe")
+        assert jcfg.get_config(arch).family not in ("dense", "moe",
+                                                     "hybrid", "ssm")
         with pytest.raises(KeyError):
             tcfg.get_config(arch)
         with pytest.raises(KeyError):

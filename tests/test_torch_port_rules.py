@@ -51,7 +51,7 @@ def test_port_tree_is_scanned():
             "telemetry.py", "controller.py", "plan.py",
             "detector.py", "trace.py", "flight.py", "gateway.py",
             "admission.py", "prom.py", "simulator.py", "synth.py",
-            "scheduler.py", "server.py"} <= names
+            "scheduler.py", "server.py", "ssm.py", "paging.py"} <= names
     subpackages = {p.parent.name for p in PORT_FILES}
     assert {"core", "cluster", "controlplane", "faults", "serving",
             "launch", "obs", "server", "traces"} <= subpackages
@@ -69,7 +69,8 @@ def test_llama_configs_equal_the_jax_package(getter):
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 @pytest.mark.parametrize("arch", [
     "qwen2.5-32b", "codeqwen1.5-7b", "internlm2-1.8b", "stablelm-1.6b",
-    "deepseek-v2-lite-16b", "llama4-scout-17b-a16e"])
+    "deepseek-v2-lite-16b", "llama4-scout-17b-a16e", "zamba2-7b",
+    "rwkv6-7b"])
 def test_registered_configs_equal_the_jax_package(arch, getter):
     import repro.configs as jcfg
     import repro_torch.configs as tcfg
@@ -123,7 +124,8 @@ COPIES = {f: (f, None) for f in (
     "serving/request.py", "configs/base.py", "configs/llama_7b_paper.py",
     "configs/qwen2_5_32b.py", "configs/codeqwen1_5_7b.py",
     "configs/internlm2_1_8b.py", "configs/stablelm_1_6b.py",
-    "configs/deepseek_v2_lite_16b.py", "configs/llama4_scout_17b_16e.py")}
+    "configs/deepseek_v2_lite_16b.py", "configs/llama4_scout_17b_16e.py",
+    "configs/zamba2_7b.py", "configs/rwkv6_7b.py", "serving/paging.py")}
 COPIES["core/invariants.py"] = ("analysis/protocol.py",
                                 "check_store_invariants")
 COPIES["serving/backend.py"] = ("serving/backend.py", "ServingBackend")
@@ -200,11 +202,12 @@ def test_copied_packages_export_the_jax_packages_names(pkg):
 def test_serving_exports_the_jax_packages_names_but_paging():
     import repro.serving as jserving
     import repro_torch.serving as tserving
-    # the unified page pool is not ported (ROADMAP A6); submodule names
-    # appear in dir() once any test has imported them
+    # every name, the unified page pool's too (it was left out until it
+    # was ported); submodule names appear in dir() once any test has
+    # imported them
     want = {n for n in dir(jserving) if not n.startswith("_")} - {
-        "OutOfPages", "UnifiedPagePool", "paging", "backend", "cluster",
-        "engine", "metrics", "request", "scheduler", "sharding"}
+        "paging", "backend", "cluster", "engine", "metrics", "request",
+        "scheduler", "sharding"}
     assert want <= set(tserving.__all__), want - set(tserving.__all__)
 
 

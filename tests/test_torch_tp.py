@@ -195,6 +195,11 @@ def test_layout_refusals(monkeypatch):
     cfg = get_smoke_config(MODEL)
     with pytest.raises(ValueError, match="divisible"):
         EngineSharding(TensorParallel(None, 0, 3), cfg)
+    # the recurrent families run at tp = 1 only (ROADMAP A9)
+    for arch in ("zamba2-7b", "rwkv6-7b"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            EngineSharding(TensorParallel(None, 0, 2),
+                           get_smoke_config(arch))
 
 
 def test_launcher_serves_tensor_parallel(monkeypatch, capfd):
