@@ -203,6 +203,44 @@ Phases (any failure raises; the script then exits non-zero):
                the SGMV path's on a bank of that adapter alone. Each run
                logs TTFT, TBT, tok/s and peak memory; the kernels line
                adds its launches.
+ 12. encdec  — after phase 11, the encoder-decoder and VLM families at
+               full width, bf16 weights from a seed, fp32 caches, on phase
+               2's trace, padded and bucketed, decode blocks 1 and 4. (a)
+               seamless-m4t-large-v2 at full depth (24 encoder and 24
+               decoder layers, d 1024, MHA 16 x 64), fed the engine's zero
+               frontend (1024 frames) as the reference's engine feeds it:
+               the same tokens in every run, B1/B2 4 x 24 times a prefill
+               group and never in decode (the adapters reach the decoder's
+               self-attention in prefill only, ROADMAP C3), B5 72 times a
+               prefill group (24 causal decoder, 24 non-causal encoder and
+               24 non-causal cross-attention calls); the first group's
+               bf16 logits padded == bucketed bit for bit and within 5e-2
+               of the largest logit of an fp32 einsum run on the same
+               weights (upcast in place). (b) A nonzero N(0, 0.02^2)
+               frontend at model level (fp32, as the engine's: the encoder,
+               its memory and the cross K/V run in fp32 over the bf16
+               weights) on the 2 x 1000 group, prefill and 3 decode steps:
+               within 5e-2 of the fp32 run's logits, and their distance
+               from the zero frontend's printed. (c) B1 and B2 at d = d_out
+               = 1024 (shrink split C = 8) on the smallest and the largest
+               prefill group, B3a/B3b on B1's calls, against plain, timed,
+               with yardsticks and phase 10's bit identities; B5 on (b)'s
+               non-causal encoder (2, 16, 1024, 64) and cross (Sq 1000, Sk
+               1024) calls and (a)'s causal decoder call, timed beside
+               ``scaled_dot_product_attention`` of the same ``is_causal``.
+               (d) ``python -m repro_torch.launch.serve --arch
+               seamless-m4t-large-v2 --config full --servers 2 --bank-mode
+               bucketed --decode-block 4`` exits 0 with ``cluster drained
+               OK``. (e) llama-3.2-vision-90b at full width (d 8192, GQA
+               64/8) and 10 of its 100 layers (two periods of 4
+               self-attention layers and a gated cross-attention block over
+               1601 patches), its gates set nonzero in place (0 at init,
+               where the cross blocks are the identity): the same tokens in
+               every run, no kernel launched, the first group's logits
+               padded == bucketed bit for bit and within 5e-2 of an fp32
+               run upcast in place; a nonzero frontend moves the logits
+               (printed). Each run logs TTFT, TBT, tok/s and peak memory;
+               the kernels line adds its launches.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -448,12 +486,16 @@ def _sgmv_work(kid, args, kw, dest, item):
     return byts, flops
 
 
-def _flash_work(q, item):
-    """(bytes, FLOPs) of causal MHA: q, k, v read once and o written once;
-    4 * hd FLOPs (q.k and p.v) for each of the S (S + 1) / 2 query-key
-    pairs the causal mask keeps in each (batch row, head)."""
-    B, H, S, hd = q.shape
-    return 4 * B * H * S * hd * item, 4 * hd * B * H * S * (S + 1) // 2
+def _flash_work(q, k, item, causal=True):
+    """(bytes, FLOPs) of MHA: q, k, v read once and o written once; 4 * hd
+    FLOPs (q.k and p.v) for each query-key pair the mask keeps in each
+    (batch row, head): all Sq x Sk of them non-causal, the min(i + 1, Sk)
+    keys of query i under B5's top-left causal mask (S (S + 1) / 2 at Sq
+    = Sk = S)."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    return 2 * B * H * (Sq + Sk) * hd * item, 4 * hd * B * H * pairs
 
 
 def _time_ms(call, flush, reps=20):
@@ -566,11 +608,14 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
         item = args[0].element_size()
         if kid == "B5":
             yk, yr = y.float(), ref.float()
-            byts, flops = _flash_work(args[0], item)
+            causal = kw.get("causal", True)
+            byts, flops = _flash_work(args[0], args[1], item, causal)
             shape = f"q={tuple(args[0].shape)}"
+            if not causal or args[1].shape[2] != args[0].shape[2]:
+                shape += f" k={tuple(args[1].shape)} causal={causal}"
             q, k, v = args
             library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), flush)
+                q, k, v, is_causal=causal), flush)
         else:
             bt = _block_t(kw)
             n = args[0].shape[0] // bt * bt
@@ -776,12 +821,23 @@ def _path_launches(cfg, mode, passes, groups):
     applied; the hybrid's calls come at each application of its shared
     attention block, RWKV-6's at each layer), B5 once per attention layer
     or application per prefill group of an MHA model without a window;
-    nothing else."""
+    nothing else. The VLM launches nothing (no adapter reaches it, and
+    its attention is GQA); the audio family's adapters reach its
+    decoder's self-attention in prefill only (ROADMAP C3), and B5 runs
+    its decoder's causal self-attention, its encoder and its
+    cross-attention, once a layer each per prefill group."""
     from repro_torch.models.model import n_attn_applications
     calls = 3 if cfg.mla is not None else len(cfg.lora.targets)
     n_attn = n_attn_applications(cfg)
     lora_layers = n_attn if cfg.family == "hybrid" else cfg.n_layers
     want = {kid: 0 for kid in KERNELS}
+    if cfg.family == "vlm":
+        return want
+    if cfg.family == "audio":
+        want[{"padded": "B1", "bucketed": "B2"}[mode]] = \
+            calls * cfg.n_layers * groups
+        want["B5"] = (2 * cfg.n_layers + cfg.encoder.n_layers) * groups
+        return want
     want[{"padded": "B1", "bucketed": "B2"}[mode]] = \
         calls * lora_layers * passes
     if n_attn and cfg.mla is None and cfg.n_heads == cfg.n_kv_heads \
@@ -919,18 +975,25 @@ def _serve_tp_trace(cfg, params, dev, mode, mesh=None):
                  max_batch=8, mesh=mesh, device=dev)
 
 
+def _group(eng, trace, S):
+    """The trace's prompts of ``S`` tokens: (tokens, the bank's lora_idx)
+    on the engine's device."""
+    group = [(aid, p) for aid, p, _ in trace if len(p) == S]
+    toks = torch.tensor([p for _, p in group], device=eng.device)
+    gi = torch.tensor([eng.lora_bank.index(a) for a, _ in group],
+                      dtype=torch.int32, device=eng.device)
+    return toks, eng.lora_bank.lora_idx(gi)
+
+
 def _group_logits(cfg, eng, trace, S, kernel="sgmv", mesh=None):
     """The trace's prompts of ``S`` tokens as one prefill group through
-    ``eng``'s model and bank again: fp32 logits on the host."""
+    ``eng``'s model and bank again (with the engine's zero frontend where
+    the family takes one): fp32 logits on the host."""
     from repro_torch.models import model as M
-    group = [(aid, p) for aid, p, _ in trace if len(p) == S]
-    dev = eng.device
-    toks = torch.tensor([p for _, p in group], device=dev)
-    gi = torch.tensor([eng.lora_bank.index(a) for a, _ in group],
-                      dtype=torch.int32, device=dev)
-    lg, _ = M.prefill(cfg, eng.params, toks, bank=eng.bank,
-                      lora_idx=eng.lora_bank.lora_idx(gi),
-                      lora_kernel=kernel, tp=mesh)
+    toks, idx = _group(eng, trace, S)
+    lg, _ = M.prefill(cfg, eng.params, toks,
+                      frontend=eng.zero_frontend(len(toks)), bank=eng.bank,
+                      lora_idx=idx, lora_kernel=kernel, tp=mesh)
     assert torch.isfinite(lg).all()
     return lg.float().cpu()
 
@@ -2445,6 +2508,234 @@ def phase_recurrent(dev, smi):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+SEAMLESS = "seamless-m4t-large-v2"
+VISION = "llama-3.2-vision-90b"
+VISION_LAYERS = 10                    # two periods; 100 layers need 175 GB
+DECODE_STEPS = 3                      # (b)'s decode steps after its prefill
+
+
+class FlashCalls:
+    """While entered (after ``inner``, a ``MainPathCalls``, when given),
+    keeps a copy of the arguments of the first B5 call of each (causal,
+    batch, Sq, Sk) that ``models.attention`` makes: the audio family's
+    decoder (causal), encoder and cross-attention calls apart."""
+
+    def __init__(self, inner=None):
+        from repro_torch.models import attention
+        self.attention, self.inner, self.calls = attention, inner, {}
+
+    def __enter__(self):
+        if self.inner is not None:
+            self.inner.__enter__()
+        self.orig = self.attention.flash_mha
+
+        def call(q, k, v, **kw):
+            key = (kw.get("causal", True), q.shape[0], q.shape[2], k.shape[2])
+            if key not in self.calls:
+                self.calls[key] = (_copy((q, k, v)), dict(kw))
+            return self.orig(q, k, v, **kw)
+        self.attention.flash_mha = call
+        return self
+
+    def __exit__(self, *exc):
+        self.attention.flash_mha = self.orig
+        if self.inner is not None:
+            self.inner.__exit__(*exc)
+
+
+def _frontend_run(cfg, eng, trace, S, frontend, kernel="sgmv", tokens=None):
+    """The model-level run of phase 12 (b): the trace's group of ``S``-token
+    prompts prefilled through ``eng``'s model and bank with ``frontend``,
+    then DECODE_STEPS decode steps, each on ``tokens[i]`` (the run's own
+    argmax when None; the adapters take no part in decode, ROADMAP C3).
+    Returns (fp32 logits on the host of the prefill and of each step, the
+    tokens decoded)."""
+    from repro_torch.models import model as M
+    toks, idx = _group(eng, trace, S)
+    lg, cache = M.prefill(cfg, eng.params, toks, frontend=frontend,
+                          bank=eng.bank, lora_idx=idx, lora_kernel=kernel,
+                          cache_len=S + DECODE_STEPS,
+                          cache_dtype=torch.float32)
+    out, fed = [lg], []
+    for i in range(DECODE_STEPS):
+        nxt = lg.argmax(-1).to(torch.int32) if tokens is None else tokens[i]
+        fed.append(nxt)
+        lg, cache = M.decode_step(cfg, eng.params, cache, nxt, bank=eng.bank,
+                                  lora_idx=idx, lora_kernel=kernel)
+        out.append(lg)
+    assert all(torch.isfinite(o).all() for o in out)
+    return [o.float().cpu() for o in out], fed
+
+
+def _held(tag, what, got, ref):
+    """bf16 logits (a list of (rows, V)) against their fp32 reference,
+    within 5e-2 of the reference's largest logit; logged."""
+    scale = max(r.abs().max().item() for r in ref)
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    agree = [(g.argmax(-1) == r.argmax(-1)).tolist() for g, r in zip(got,
+                                                                    ref)]
+    log(f"{tag} logits {what}: bf16 vs fp32 on the same weights: max abs "
+        f"diff {err:.4e} of max |logit| {scale:.4f} ({err / scale:.3%}; "
+        f"tol 5e-2 of it), argmax agree {agree}")
+    assert all(torch.isfinite(r).all() for r in ref)
+    assert err <= 5e-2 * scale, (what, err, scale)
+
+
+def _moved(tag, what, a, b):
+    """How far a nonzero frontend moves the logits from the zero one's."""
+    moved = max((x - y).abs().max().item() for x, y in zip(a, b))
+    scale = max(y.abs().max().item() for y in b)
+    log(f"{tag} frontend {what}: a nonzero frontend moves the logits by "
+        f"max abs {moved:.4e} ({moved / scale:.3%} of max |logit| "
+        f"{scale:.4f}) from the zero frontend's")
+    assert moved > 0, what
+
+
+def _audio(dev, smi, results):
+    """Phase 12 (a)-(c): seamless-m4t-large-v2 at full width and depth.
+    Returns the launches of (a)'s runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import sgmv
+    cfg = get_config(SEAMLESS)
+    params = _init_model(cfg, dev, tag="audio")
+    trace, ranks, weights = _serve_trace(cfg, 8, dev)
+    # (a) the engine: zero frontends, as the reference's engine feeds
+    main = MainPathCalls(widths=True)
+    flash = FlashCalls(main)
+    launches, engines = _moe_engine_runs(
+        dev, cfg, params, trace, weights,
+        [(m, db) for m in ("padded", "bucketed") for db in (1, 4)], smi,
+        flash, tag="audio")
+    # d = d_out = 1024 at every target, the shrink split C = 8
+    d = cfg.d_model
+    assert _widths_seen(main.calls, "sgmv_fused_blocks") == \
+        _lora_widths(cfg) == [(d, d)]
+    assert _widths_seen(main.calls, "sgmv_multibank_blocks") == [(d, d)]
+    log(f"audio B1/B2 width d={d}: shrink split C="
+        f"{sgmv.shrink_split(d, torch.bfloat16)}")
+    lg = _group_logits(cfg, engines["padded"], trace, 64)
+    assert torch.equal(lg, _group_logits(cfg, engines["bucketed"], trace,
+                                         64))
+    # (b) a nonzero frontend at model level: N(0, 0.02^2) frames, fp32 as
+    # the engine's, on the 2 x 1000 group; B5's calls recorded
+    eng = engines["padded"]
+    del engines
+    g = torch.Generator(device=dev).manual_seed(7)
+    fe = torch.randn((2, cfg.encoder.n_frames, cfg.d_model), generator=g,
+                     device=dev) * 0.02
+    with FlashCalls() as b5:
+        nz, fed = _frontend_run(cfg, eng, trace, 1000, fe)
+    zero, _ = _frontend_run(cfg, eng, trace, 1000, eng.zero_frontend(2),
+                            tokens=fed)
+    _moved("audio", f"{cfg.name} 2 x 1000 group, prefill and "
+           f"{DECODE_STEPS} decode steps", nz, zero)
+    del eng
+    _free()
+    # the fp32 reference on the same weights, upcast in place
+    fp32 = _fp32_engine(cfg, params, ranks, weights, 72)
+    ref = _group_logits(cfg, fp32, trace, 64, kernel="einsum")
+    _held("audio", f"{cfg.name} first prefill group (4 x 64), zero "
+          "frontend, padded == bucketed bit for bit", [lg], [ref])
+    ref_nz, _ = _frontend_run(cfg, fp32, trace, 1000, fe, kernel="einsum",
+                              tokens=fed)
+    _held("audio", f"{cfg.name} 2 x 1000 group, nonzero frontend, prefill "
+          f"and {DECODE_STEPS} decode steps", nz, ref_nz)
+    del fp32, params
+    _free()
+    # (c) the kernels at the new shapes: B1/B2 (and B3a/B3b on B1's) on
+    # the smallest and the largest prefill group (no decode call: the
+    # adapters stay out of decode); B5 on (b)'s encoder and cross calls
+    # and on (a)'s causal decoder call
+    calls = {(k[0], {"decode": "minprefill", "prefill": "maxprefill"}[k[1]],
+              *k[2:]): v for k, v in main.calls.items()
+             if k[0] != "flash_mha"}
+    _moe_kernel_checks(dev, "seamless", calls, results)
+    M = cfg.encoder.n_frames
+    picked = {"encoder": b5.calls[(False, 2, M, M)],
+              "cross": b5.calls[(False, 2, 1000, M)],
+              "decoder": flash.calls[(True, 2, 1000, 1000)]}
+    assert picked["encoder"][0][0].dtype == torch.float32     # promoted
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for what, (args, kw) in picked.items():
+        _check_and_time("B5", f"seamless-{what}-hd64", args, kw, None,
+                        flush, results)
+    del flush, picked, b5, flash, main, calls
+    return launches
+
+
+def _vision(dev, smi, results):
+    """Phase 12 (e): llama-3.2-vision-90b at full width and two periods
+    (10 of its 100 layers), the gates set nonzero in place after init (0
+    at init, where every cross block is the identity). Returns the
+    launches of its runs (none)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    cfg = dc.replace(get_config(VISION), n_layers=VISION_LAYERS)
+    params = _init_model(cfg, dev, tag="vlm")
+    with torch.no_grad():
+        for i, cb in enumerate(params.cross_blocks):
+            cb.gate_attn.fill_(0.5 + 0.25 * i)
+            cb.gate_ffn.fill_(-0.4 - 0.25 * i)
+    log(f"vlm gates set in place: gate_attn "
+        f"{[cb.gate_attn.item() for cb in params.cross_blocks]} gate_ffn "
+        f"{[cb.gate_ffn.item() for cb in params.cross_blocks]} (0 at init)")
+    trace, ranks, weights = _serve_trace(cfg, 8, dev)
+    launches, engines = _moe_engine_runs(
+        dev, cfg, params, trace, weights,
+        [(m, db) for m in ("padded", "bucketed") for db in (1, 4)], smi,
+        MainPathCalls(), tag="vlm")
+    assert not any(launches.values()), launches
+    lg = _group_logits(cfg, engines["padded"], trace, 64)
+    assert torch.equal(lg, _group_logits(cfg, engines["bucketed"], trace,
+                                         64))
+    eng = engines["padded"]
+    del engines
+    g = torch.Generator(device=dev).manual_seed(7)
+    fe = torch.randn((4, cfg.n_frontend_tokens, cfg.d_model), generator=g,
+                     device=dev) * 0.02
+    nz, fed = _frontend_run(cfg, eng, trace, 64, fe)
+    zero, _ = _frontend_run(cfg, eng, trace, 64, eng.zero_frontend(4),
+                            tokens=fed)
+    _moved("vlm", f"{cfg.name} first prefill group (4 x 64, "
+           f"{cfg.n_frontend_tokens} patches), prefill and {DECODE_STEPS} "
+           "decode steps", nz, zero)
+    del eng
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fp32 = _fp32_engine(cfg, params, ranks, weights, 72)
+    ref = _group_logits(cfg, fp32, trace, 64, kernel="einsum")
+    log(f"vlm fp32 reference: peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    _held("vlm", f"{cfg.name} first prefill group (4 x 64), zero frontend, "
+          "padded == bucketed bit for bit", [lg], [ref])
+    del fp32, params
+    _free()
+    return launches
+
+
+def phase_encdec_vlm(dev, smi):
+    """Phase 12. Returns (the launches of its main-path runs, the kernels'
+    results at the new shapes)."""
+    results, launches = {}, {kid: 0 for kid in KERNELS}
+    t0 = time.monotonic()
+    for kid, n in _audio(dev, smi, results).items():
+        launches[kid] += n
+    _free()
+    log(f"phase encdec audio: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    _moe_launcher(SEAMLESS, tag="audio")
+    log(f"phase encdec launcher: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    for kid, n in _vision(dev, smi, results).items():
+        launches[kid] += n
+    _free()
+    log(f"phase encdec vlm: {time.monotonic() - t0:.1f}s")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2519,6 +2810,13 @@ def main() -> int:
         launches[kid] += n
     log(f"phase recurrent: {time.monotonic() - t0:.1f}s; launches "
         f"{ {k: v for k, v in rec_launches.items() if v} }")
+    t0 = time.monotonic()
+    xf_launches, xf_res = phase_encdec_vlm(dev, smi)
+    kres.update(xf_res)
+    for kid, n in xf_launches.items():
+        launches[kid] += n
+    log(f"phase encdec: {time.monotonic() - t0:.1f}s; launches "
+        f"{ {k: v for k, v in xf_launches.items() if v} }")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

@@ -39,9 +39,11 @@ def params_from_numpy(cfg, tree, *, device="cuda",
     """The JAX param tree of ``models/model.py:init_params`` as numpy
     arrays -> the port's model of ``cfg.family``: a ``DenseLM`` (dense or
     MoE, GQA or MLA; ``blocks`` stacked on a leading layer axis), a
-    ``HybridLM`` (``mamba_blocks`` stacked, one ``shared_attn``) or an
-    ``RWKVLM`` (``blocks`` stacked). The modules' attributes carry the
-    JAX leaves' names."""
+    ``HybridLM`` (``mamba_blocks`` stacked, one ``shared_attn``), an
+    ``RWKVLM`` (``blocks`` stacked), a ``VisionLM`` (``self_blocks`` and
+    ``cross_blocks`` stacked, each gate of shape (1,)) or an ``EncDecLM``
+    (``enc_blocks`` and ``dec_blocks`` stacked, ``enc_ln_f``). The
+    modules' attributes carry the JAX leaves' names."""
     dev = resolve_device(device)
     lm = init_params(cfg, 0, dtype=dtype, device=dev)   # then overwritten
     with torch.no_grad():

@@ -205,9 +205,8 @@ def _serve_rank(rank: int, dp: int, tp: int, args) -> None:
         args.arch)
     dtype = getattr(torch, args.dtype)
     params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
-    trace = build_trace(cfg, args.requests,
-                        [int(v) for v in args.prompt_lens.split(",")],
-                        args.max_new, args.seed)
+    trace = build_trace(cfg, args.requests, args.prompt_lens, args.max_new,
+                        args.seed)
     weights = adapter_weights(
         cfg, {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in trace},
         dtype=dtype, device=device, seed=args.seed)
@@ -452,7 +451,6 @@ def _serve_cluster(args) -> None:
     adapters = cluster_adapters(args.adapters)
     weights = adapter_weights(cfg, {a.adapter_id: a.rank for a in adapters},
                               dtype=dtype, device=device, seed=args.seed)
-    prompt_lens = [int(v) for v in args.prompt_lens.split(",")]
     controller = None
     if args.controller:
         from repro_torch.controlplane import (ClusterController,
@@ -484,7 +482,7 @@ def _serve_cluster(args) -> None:
                 decode_block=args.decode_block, device=device)
     cluster = make_cluster(
         cfg, params, adapters, weights, args.servers,
-        max_len=max(prompt_lens) + args.max_new + 8,
+        max_len=max(args.prompt_lens) + args.max_new + 8,
         max_batch=args.max_batch, seed=args.seed, bank_mode=args.bank_mode,
         decode_block=args.decode_block, lora_kernel=args.lora_kernel,
         policy=args.policy, rebalance_period=args.rebalance_period,
@@ -520,8 +518,9 @@ def _serve_cluster(args) -> None:
         spans(report)
         print("gateway drained OK")
         return
-    trace = build_cluster_trace(adapters, cfg, args.requests, prompt_lens,
-                                args.max_new, args.duration, args.seed)
+    trace = build_cluster_trace(adapters, cfg, args.requests,
+                                args.prompt_lens, args.max_new,
+                                args.duration, args.seed)
     report = (profiled(lambda: cluster.run(trace), device) if args.profile
               else cluster.run(trace))
     extra = cluster_summary(cluster, report, trace)
@@ -581,7 +580,9 @@ def _serve_cluster(args) -> None:
     print("cluster drained OK")
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The launcher's arguments; ``prompt_lens`` comes back as a list of
+    ints, from ``--prompt-lens`` or the JAX launcher's ``--prompt-len``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-7b-paper", choices=ARCH_IDS)
     ap.add_argument("--config", default="full", choices=["full", "smoke"])
@@ -595,8 +596,12 @@ def main(argv=None):
                     help="decode tokens per host sync "
                          "(ServingEngine.decode_steps(k))")
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--prompt-lens", default="64,128",
-                    help="comma-separated prompt lengths, used in turn")
+    lens = ap.add_mutually_exclusive_group()
+    lens.add_argument("--prompt-lens", default="64,128",
+                      help="comma-separated prompt lengths, used in turn")
+    lens.add_argument("--prompt-len", type=int, default=None,
+                      help="one prompt length: the trace of --prompt-lens N "
+                           "(the JAX launcher's flag)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--dtype", default="bfloat16",
@@ -668,6 +673,13 @@ def main(argv=None):
                          "inputs) to DIR on SLO violations and scale "
                          "events")
     args = ap.parse_args(argv)
+    args.prompt_lens = [args.prompt_len] if args.prompt_len is not None \
+        else [int(v) for v in args.prompt_lens.split(",")]
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.serve and args.servers is None:
         args.servers = 2
     if args.servers is not None:

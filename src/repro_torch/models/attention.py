@@ -1,18 +1,26 @@
-"""Attention of the PyTorch port: grouped-query attention and DeepSeek-V2's
-multi-head latent attention (MLA), the GQA and MLA parts of the JAX
-package's ``models/attention.py`` (cross-attention waits for ROADMAP
-queue A item 10).
+"""Attention of the PyTorch port: grouped-query attention, DeepSeek-V2's
+multi-head latent attention (MLA) and cross-attention (the VLM's image
+layers, the encoder-decoder's decoder), the JAX package's
+``models/attention.py``.
 
 Every projection takes an optional ``lora`` hook, a callable
 ``lora(name, x) -> delta`` that the serving engine uses to add batched
 heterogeneous-adapter deltas on the Q/K/V/O projections.
 
-A prefill's attention (``gqa_full`` with ``positions=None``: the rows
-start at position 0) of an MHA config without a sliding window runs on
-the flash-attention kernel B5 (``kernels/flash.py``); GQA, windowed
+MHA (H == Kv) from position 0 without a sliding window runs on the
+flash-attention kernel B5 (``kernels/flash.py``): a prefill's causal
+attention and the audio encoder's bidirectional one (``gqa_full`` with
+``positions=None``, causal or not), and cross-attention over the
+encoder's memory at S > 1 (non-causal, Sq = S, Sk = M). GQA, windowed
 attention and explicit positions run on ``common.flash_attention``, and
 so does MLA's (its rope key is shared by the heads, and its q.k head dim
-is not v's), as in the JAX package.
+is not v's), as in the JAX package. The route reads only shapes and
+arguments.
+
+Products take the promoted type of their operands (``common.mm``), as
+JAX's do: the engine's frontend is fp32, so over bf16 weights the audio
+encoder, its memory and the cross K/V are fp32, and B5 runs its fp32
+kernel on them; the decoder's hidden state stays in the weights' type.
 
 Tensor parallel (``tp``, Megatron layout): a rank holds a contiguous
 range of query heads and their kv heads, so ``wq``, ``wk``, ``wv`` are
@@ -32,11 +40,21 @@ from torch import nn
 from repro_torch.kernels.flash import flash_mha
 
 from .common import (NEG_INF, all_reduce_, apply_rope, attend_cache,
-                     dense_init, flash_attention, rmsnorm, tp_size)
+                     dense_init, flash_attention, mm, rmsnorm, tp_size)
 
 
 def _zero_lora(name, x):
     return 0.0
+
+
+def _projections(module, cfg, gen, dtype):
+    """wq: (d, H*hd); wk, wv: (d, Kv*hd); wo: (H*hd, d) on ``module``."""
+    d, H, Kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    for name, shape in (("wq", (d, H * hd)), ("wk", (d, Kv * hd)),
+                        ("wv", (d, Kv * hd)), ("wo", (H * hd, d))):
+        setattr(module, name, nn.Parameter(
+            dense_init(gen, shape, dtype=dtype), requires_grad=False))
 
 
 class GQAAttention(nn.Module):
@@ -45,17 +63,9 @@ class GQAAttention(nn.Module):
 
     def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
         super().__init__()
-        d, H, Kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        H, Kv = cfg.n_heads, cfg.n_kv_heads
         hd = cfg.resolved_head_dim
-
-        def w(shape):
-            return nn.Parameter(dense_init(gen, shape, dtype=dtype),
-                                requires_grad=False)
-
-        self.wq = w((d, H * hd))
-        self.wk = w((d, Kv * hd))
-        self.wv = w((d, Kv * hd))
-        self.wo = w((H * hd, d))
+        _projections(self, cfg, gen, dtype)
         if cfg.qkv_bias:
             def zeros(n):
                 return nn.Parameter(torch.zeros(n, dtype=dtype,
@@ -69,9 +79,9 @@ def _qkv(cfg, p: GQAAttention, x, positions, lora, rope: bool = True):
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
     H, Kv = p.wq.shape[1] // hd, p.wk.shape[1] // hd     # this rank's heads
-    q = x @ p.wq + lora("q", x)
-    k = x @ p.wk + lora("k", x)
-    v = x @ p.wv + lora("v", x)
+    q = mm(x, p.wq) + lora("q", x)
+    k = mm(x, p.wk) + lora("k", x)
+    v = mm(x, p.wv) + lora("v", x)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(B, S, H, hd)
@@ -87,7 +97,7 @@ def _out_proj(p: GQAAttention, o, lora, tp):
     """o @ wo plus the ``o`` LoRA delta. At tp > 1, o holds this rank's
     heads and the delta this rank's columns of d_model: the delta goes
     into its columns of the partial sum, and one all-reduce sums both."""
-    out = o @ p.wo
+    out = mm(o, p.wo)
     delta = lora("o", o)
     if tp_size(tp) == 1:
         return out + delta
@@ -100,25 +110,33 @@ def _out_proj(p: GQAAttention, o, lora, tp):
 def gqa_full(cfg, p: GQAAttention, x, positions=None, *, causal=True,
              window=0, lora: Optional[Callable] = None, tp=None):
     """Full-sequence attention. ``positions=None`` means the prefill's
-    ``arange(S)``; then, when the attention is causal, unwindowed and MHA
-    (H == Kv, counted on this rank), it runs on kernel B5, whose top-left
-    causal mask is the prefill's. The choice reads only shapes and
-    arguments. Returns (out, (k, v)) for cache seeding; k, v hold this
-    rank's kv heads."""
+    (or the audio encoder's) ``arange(S)``; then, when the attention is
+    unwindowed and MHA (H == Kv, counted on this rank), it runs on kernel
+    B5, causal (whose top-left mask is the prefill's) or not. The choice
+    reads only shapes and arguments. Returns (out, (k, v)) for cache
+    seeding; k, v hold this rank's kv heads."""
     lora = lora or _zero_lora
     B, S = x.shape[:2]
     from_zero = positions is None
     if from_zero:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(cfg, p, x, positions, lora)
-    if from_zero and causal and not window and q.shape[2] == k.shape[2]:
-        # (B, S, H, hd) read in place; the output's memory is (B, S, H, hd)
-        o = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=True).transpose(1, 2)
+    if from_zero and not window and q.shape[2] == k.shape[2]:
+        o = _flash_mha(q, k, v, causal)
     else:
         o = flash_attention(q, k, v, causal=causal, q_positions=positions,
                             k_positions=positions, window=window)
     return _out_proj(p, o.reshape(B, S, -1), lora, tp), (k, v)
+
+
+def _flash_mha(q, k, v, causal):
+    """B5 on (B, S, H, hd) tensors, read in place (the output's memory is
+    (B, S, H, hd) too), in the promoted type of q and k; the output in
+    q's type."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    o = flash_mha(q.transpose(1, 2).to(dt), k.transpose(1, 2).to(dt),
+                  v.transpose(1, 2).to(dt), causal=causal)
+    return o.transpose(1, 2).to(q.dtype)
 
 
 def _write_token(cache, write_idx, new):
@@ -289,3 +307,53 @@ def mla_decode(cfg, p: MLAAttention, x, c_cache, kr_cache, pos, *,
             B, S, H, m.qk_rope_head_dim)], dim=-1)
         o = attend_cache(q, k, v, valid, scale=scale).reshape(B, 1, -1)
     return _out_proj(p, o, lora, None), (c_cache, kr_cache)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the VLM's image layers, the encoder-decoder's decoder)
+# ---------------------------------------------------------------------------
+
+
+class CrossAttention(nn.Module):
+    """wq: (d, H*hd); wk, wv: (d, Kv*hd); wo: (H*hd, d): no bias, no
+    RoPE (the JAX ``init_cross_attn``)."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__()
+        _projections(self, cfg, gen, dtype)
+
+
+def cross_kv(cfg, p: CrossAttention, memory):
+    """The cross-attention's K/V of ``memory`` (B, M, d), each (B, M, Kv,
+    hd), computed once at prefill, in the promoted type of memory and
+    the weights."""
+    B, M, _ = memory.shape
+    hd = cfg.resolved_head_dim
+    Kv = p.wk.shape[1] // hd
+    return (mm(memory, p.wk).reshape(B, M, Kv, hd),
+            mm(memory, p.wv).reshape(B, M, Kv, hd))
+
+
+def cross_attend(cfg, p: CrossAttention, x, k, v, lora=None):
+    """x: (B, S, d) queries; k, v: (B, M, Kv, hd) from ``cross_kv`` (or
+    the cache). Non-causal, no RoPE. At S = 1 ``attend_cache`` with every
+    key valid; at S > 1 MHA runs on B5 non-causal (Sq = S, Sk = M), GQA
+    on ``flash_attention(causal=False)`` over ``arange(S)`` and
+    ``arange(M)``. The output is in the type of x's product with the
+    weights."""
+    lora = lora or _zero_lora
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (mm(x, p.wq) + lora("q", x)).reshape(B, S, -1, hd)
+    M = k.shape[1]
+    if S == 1:
+        valid = torch.ones((B, M), dtype=torch.bool, device=x.device)
+        o = attend_cache(q, k, v, valid)
+    elif q.shape[2] == k.shape[2]:
+        o = _flash_mha(q, k, v, causal=False)
+    else:
+        o = flash_attention(q, k, v, causal=False,
+                            q_positions=torch.arange(S, device=x.device),
+                            k_positions=torch.arange(M, device=x.device))
+    o = o.reshape(B, S, -1)
+    return mm(o, p.wo) + lora("o", o)

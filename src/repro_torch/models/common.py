@@ -40,6 +40,16 @@ def all_reduce_(x, tp):
     return x
 
 
+def mm(x, w):
+    """x @ w in the promoted type of the two, as JAX's ``@`` computes it:
+    torch refuses a product of two types, which the encoder-decoder and
+    VLM families make when an fp32 frontend meets bf16 weights."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
 def rows_to_tokens(x):
     """(B, S, d) -> ((B*S, d), (B, S)): token t of row b sits at b*S + t,
     so per-row adapter ids repeat S times."""

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import all_reduce_, dense_init
+from .common import all_reduce_, dense_init, mm
 
 
 def _frozen(t):
@@ -33,8 +33,9 @@ class SwiGLU(nn.Module):
         self.w2 = _frozen(dense_init(gen, (ff, d), fan_in=ff, dtype=dtype))
 
     def forward(self, x, tp=None):
-        return all_reduce_((F.silu(x @ self.w1) * (x @ self.w3)) @ self.w2,
-                           tp)
+        """In the promoted type of x and the weights (``common.mm``)."""
+        h = F.silu(mm(x, self.w1)) * mm(x, self.w3)
+        return all_reduce_(mm(h, self.w2), tp)
 
 
 class MoE(nn.Module):

@@ -1,6 +1,6 @@
-"""Model assembly of the PyTorch port: init, prefill and decode for the
-dense, MoE, hybrid and SSM families (the matching branches of the JAX
-package's ``models/model.py``).
+"""Model assembly of the PyTorch port: init, prefill and decode for every
+family of the JAX package's ``models/model.py`` (dense, MoE, hybrid, SSM,
+VLM and audio).
 
 Parameters live in ``nn.Module``s in the JAX layout, weights (d_in,
 d_out) used as ``x @ w``, each module's attributes named as the JAX
@@ -11,7 +11,17 @@ tree's leaves:
   * ``HybridLM`` (zamba2): ``mamba_blocks`` (``ssm.Mamba2``, one a
     layer) and one ``shared_attn`` ``DenseBlock`` applied before every
     segment of ``cfg.attn_every`` Mamba2 layers (``_hybrid_segments``);
-  * ``RWKVLM``: ``blocks`` of ``ssm.RWKV6``.
+  * ``RWKVLM``: ``blocks`` of ``ssm.RWKV6``;
+  * ``VisionLM`` (llama-3.2-vision): ``self_blocks`` (``DenseBlock``)
+    and ``cross_blocks`` (``CrossBlock``: cross-attention and SwiGLU,
+    each behind a tanh gate that is 0 at init, so the block is the
+    identity until its gates move). Period p runs ``self_blocks[4p ..
+    4p+3]`` (``cross_attn_every`` - 1 of them), then ``cross_blocks[p]``;
+    self-attention cache entry 4p + j is period p's layer j;
+  * ``EncDecLM`` (seamless-m4t): the bidirectional encoder
+    ``enc_blocks`` (``DenseBlock``) with ``enc_ln_f`` over the frame
+    embeddings, then ``dec_blocks`` (``EncDecBlock``: causal
+    self-attention, cross-attention over the encoder's memory, SwiGLU).
 The layer stack is a Python loop where JAX scans. Cache dict keys, as in
 the JAX package:
   pos   : (B,) int32 — tokens currently in the cache per row
@@ -20,6 +30,8 @@ the JAX package:
           the hybrid's shared block)
   c, kr : (L, B, S, kv_lora_rank) / (L, B, S, rope) MLA's compressed
           cache, in place of k and v
+  xk, xv : (L_cross, B, M, Kv, hd) cross-attention K/V of the frontend
+          (VLM) or of the encoder's memory (audio), computed at prefill
   ssm   : (L, B, H, hd, N) Mamba2 state
   wkv, x_tm, x_cm : RWKV-6 state (L, B, H, hd, hd) fp32 and the token
           shifts (L, B, d)
@@ -27,6 +39,14 @@ the JAX package:
 tensors in place (JAX returns new arrays) and return a dict with a new
 ``pos``. Serving ignores the MoE layers' balance loss, as the JAX prefill
 and decode do.
+
+The VLM and audio prefills take a ``frontend`` (B, M, d): patch or frame
+embeddings. Products take the promoted type of their operands
+(``common.mm``), as JAX's do: over bf16 weights an fp32 frontend (the
+engine's) gives an fp32 encoder, memory and cross K/V, and a decoder
+hidden state in bf16. LoRA reaches what the JAX package's reaches and no
+more (ROADMAP C3): the audio decoder's self-attention in prefill only,
+nothing of the VLM; the bank is passed and ignored elsewhere.
 
 The hybrid's LoRA bank holds one layer, the shared block's, and the same
 callback serves every application of it. RWKV-6 takes its adapters on
@@ -50,7 +70,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.lora.batched import make_lora_cb
 
-from .attention import (GQAAttention, MLAAttention, gqa_decode, gqa_full,
+from .attention import (CrossAttention, GQAAttention, MLAAttention,
+                        cross_attend, cross_kv, gqa_decode, gqa_full,
                         mla_decode, mla_full)
 from .common import dense_init, rmsnorm, tp_size
 from .ffn import MoE, SwiGLU, moe_ffn
@@ -59,16 +80,17 @@ from .ssm import (Mamba2, RWKV6, mamba2_full, mamba2_state, mamba2_step,
                   rwkv6_time_mix)
 
 # family -> the state-space kind it needs (None: no ``cfg.ssm``)
-_FAMILIES = {"dense": None, "moe": None, "hybrid": "mamba2", "ssm": "rwkv6"}
+_FAMILIES = {"dense": None, "moe": None, "hybrid": "mamba2", "ssm": "rwkv6",
+             "vlm": None, "audio": None}
 
 
 def _check_family(cfg) -> None:
     kind = cfg.ssm.kind if cfg.ssm is not None else None
     if cfg.family not in _FAMILIES or kind != _FAMILIES[cfg.family]:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (ssm {kind!r}) is not "
-            "ported; the dense, MoE, hybrid (mamba2) and SSM (rwkv6) "
-            "families are, VLM and audio are ROADMAP queue A item 10")
+            f"{cfg.name}: family {cfg.family!r} (ssm {kind!r}) is not one "
+            "of the JAX package's: " + ", ".join(
+                f + (f" ({k})" if k else "") for f, k in _FAMILIES.items()))
 
 
 def _cache_keys(cfg):
@@ -82,7 +104,18 @@ def n_attn_applications(cfg) -> int:
         return -(-cfg.n_layers // cfg.attn_every)
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "vlm":
+        return cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
     return cfg.n_layers
+
+
+def n_cross_applications(cfg) -> int:
+    """Number of cross-attention cache entries (the xk/xv leading dim)."""
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_attn_every
+    if cfg.family == "audio":
+        return cfg.n_layers
+    return 0
 
 
 def _hybrid_segments(cfg):
@@ -91,18 +124,53 @@ def _hybrid_segments(cfg):
             for start in range(0, cfg.n_layers, cfg.attn_every)]
 
 
+def _const(value, n, gen, dtype):
+    return nn.Parameter(torch.full((n,), value, dtype=dtype,
+                                   device=gen.device), requires_grad=False)
+
+
 class DenseBlock(nn.Module):
     def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = nn.Parameter(torch.ones(d, dtype=dtype, device=gen.device),
-                                requires_grad=False)
-        self.ln2 = nn.Parameter(torch.ones(d, dtype=dtype, device=gen.device),
-                                requires_grad=False)
+        self.ln1 = _const(1.0, d, gen, dtype)
+        self.ln2 = _const(1.0, d, gen, dtype)
         self.attn = (MLAAttention if cfg.mla is not None else GQAAttention)(
             cfg, gen, dtype)
         self.ffn = MoE(cfg, gen, dtype) if cfg.moe is not None else \
             SwiGLU(d, cfg.d_ff, gen, dtype)
+
+
+class CrossBlock(nn.Module):
+    """The VLM's gated cross-attention block (the JAX
+    ``_init_cross_block``): ln1, ln2, attn (``CrossAttention``), ffn
+    (``SwiGLU``), gate_attn and gate_ffn of shape (1,), 0 at init."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _const(1.0, d, gen, dtype)
+        self.ln2 = _const(1.0, d, gen, dtype)
+        self.attn = CrossAttention(cfg, gen, dtype)
+        self.ffn = SwiGLU(d, cfg.d_ff, gen, dtype)
+        self.gate_attn = _const(0.0, 1, gen, dtype)
+        self.gate_ffn = _const(0.0, 1, gen, dtype)
+
+
+class EncDecBlock(nn.Module):
+    """The encoder-decoder's decoder block (the JAX
+    ``_init_encdec_dec_block``): ln1, lnc, ln2, attn (``GQAAttention``),
+    cross (``CrossAttention``), ffn (``SwiGLU``)."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _const(1.0, d, gen, dtype)
+        self.lnc = _const(1.0, d, gen, dtype)
+        self.ln2 = _const(1.0, d, gen, dtype)
+        self.attn = GQAAttention(cfg, gen, dtype)
+        self.cross = CrossAttention(cfg, gen, dtype)
+        self.ffn = SwiGLU(d, cfg.d_ff, gen, dtype)
 
 
 class BaseLM(nn.Module):
@@ -152,16 +220,45 @@ class RWKVLM(BaseLM):
                                     for _ in range(cfg.n_layers))
 
 
+class VisionLM(BaseLM):
+    """The VLM: ``self_blocks`` (``DenseBlock``, n_layers - n_cross of
+    them) and ``cross_blocks`` (``CrossBlock``, n_cross = n_layers //
+    cross_attn_every)."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__(cfg, gen, dtype)
+        self.self_blocks = nn.ModuleList(
+            DenseBlock(cfg, gen, dtype)
+            for _ in range(n_attn_applications(cfg)))
+        self.cross_blocks = nn.ModuleList(
+            CrossBlock(cfg, gen, dtype)
+            for _ in range(n_cross_applications(cfg)))
+
+
+class EncDecLM(BaseLM):
+    """The audio encoder-decoder: ``enc_blocks`` (``DenseBlock``,
+    ``cfg.encoder.n_layers``), ``enc_ln_f`` and ``dec_blocks``
+    (``EncDecBlock``, ``cfg.n_layers``)."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+        super().__init__(cfg, gen, dtype)
+        self.enc_blocks = nn.ModuleList(DenseBlock(cfg, gen, dtype)
+                                        for _ in range(cfg.encoder.n_layers))
+        self.enc_ln_f = _const(1.0, cfg.d_model, gen, dtype)
+        self.dec_blocks = nn.ModuleList(EncDecBlock(cfg, gen, dtype)
+                                        for _ in range(cfg.n_layers))
+
+
 _LM_CLASS = {"dense": DenseLM, "moe": DenseLM, "hybrid": HybridLM,
-             "ssm": RWKVLM}
+             "ssm": RWKVLM, "vlm": VisionLM, "audio": EncDecLM}
 
 
 def init_params(cfg, seed: int = 0, *, dtype=torch.float32,
                 device="cuda") -> BaseLM:
     """Random base weights from one ``torch.Generator`` on ``device``
     (not the JAX package's numbers: tests carry weights across with
-    ``repro_torch.bridge``): a ``DenseLM``, ``HybridLM`` or ``RWKVLM`` by
-    ``cfg.family``."""
+    ``repro_torch.bridge``): a ``DenseLM``, ``HybridLM``, ``RWKVLM``,
+    ``VisionLM`` or ``EncDecLM`` by ``cfg.family``."""
     _check_family(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
@@ -213,6 +310,15 @@ def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
     return x + _ffn(cfg, bp, x, tp)
 
 
+def _cross_block(cfg, bp: CrossBlock, x, kc, vc):
+    """The VLM's gated block: x + tanh(gate_attn) * cross-attention, then
+    + tanh(gate_ffn) * SwiGLU."""
+    h = cross_attend(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps), kc,
+                     vc)
+    x = x + torch.tanh(bp.gate_attn) * h
+    return x + torch.tanh(bp.gate_ffn) * _ffn(cfg, bp, x, None)
+
+
 def _rwkv_block(cfg, bp: RWKV6, x, st, lora):
     h, st_tm = rwkv6_time_mix(cfg, bp, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
                               st, lora)
@@ -234,12 +340,14 @@ def _embed(params: BaseLM, tokens):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
-               device="cuda", tp=None):
+               device="cuda", tp=None, enc_len: Optional[int] = None):
     """Zeroed cache dict. max_len should already account for any sliding
     window (callers pass min(seq, window)). At tp > 1 it holds this rank's
     n_kv_heads / tp kv heads (the JAX package's kv-head-sharded
     "baseline" cache layout), and no full cache is ever made. The WKV
-    state is fp32 whatever ``dtype``, as in the JAX package."""
+    state is fp32 whatever ``dtype``, as in the JAX package. The cross
+    K/V hold ``enc_len`` positions (by default the config's frames or
+    frontend tokens)."""
     _check_family(cfg)
     dev = resolve_device(device)
     cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
@@ -253,6 +361,12 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
     elif n_attn:
         kv = lead + (cfg.n_kv_heads // tp_size(tp), cfg.resolved_head_dim)
         shapes = {"k": kv, "v": kv}
+    n_cross = n_cross_applications(cfg)
+    if n_cross:
+        M = enc_len or (cfg.encoder.n_frames if cfg.encoder
+                        else cfg.n_frontend_tokens)
+        shapes["xk"] = shapes["xv"] = (n_cross, batch, M, cfg.n_kv_heads,
+                                       cfg.resolved_head_dim)
     if cfg.family == "hybrid":
         _, H, hd, N = mamba_dims(cfg)
         shapes["ssm"] = (cfg.n_layers, batch, H, hd, N)
@@ -296,6 +410,61 @@ def _run_dense_full(cfg, params: DenseLM, x, cache, *, window, bank,
     return x
 
 
+def _write_cross(cache, i, xk, xv):
+    """Cross-attention application ``i``'s K/V into the cache, in its
+    type."""
+    cache["xk"][i] = xk.to(cache["xk"].dtype)
+    cache["xv"][i] = xv.to(cache["xv"].dtype)
+
+
+def _run_vlm_full(cfg, params: VisionLM, x, cache, *, window, frontend,
+                  bank, lora_idx, lora_kernel, tp):
+    # no adapter reaches the VLM (the JAX ``_run_vlm_full`` binds none)
+    per = cfg.cross_attn_every - 1
+    for p, cb in enumerate(params.cross_blocks):
+        xk, xv = cross_kv(cfg, cb.attn, frontend)
+        for i in range(p * per, (p + 1) * per):
+            x, kv = _dense_block_full(cfg, params.self_blocks[i], x, window,
+                                      None, tp)
+            _write_kv(cfg, cache, i, kv, window)
+        x = _cross_block(cfg, cb, x, xk, xv)
+        _write_cross(cache, p, xk, xv)
+    return x
+
+
+def _run_audio_encoder(cfg, params: EncDecLM, frames):
+    """The bidirectional encoder over frame embeddings (B, M, d): RoPE over
+    the frame positions, non-causal self-attention (B5 for MHA), SwiGLU;
+    the memory after ``enc_ln_f``, in the promoted type of the frames and
+    the weights."""
+    x = frames
+    for bp in params.enc_blocks:
+        h, _ = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
+                        causal=False)
+        x = x + h
+        x = x + _ffn(cfg, bp, x, None)
+    return rmsnorm(x, params.enc_ln_f, cfg.rmsnorm_eps)
+
+
+def _run_audio_full(cfg, params: EncDecLM, x, cache, *, window, frontend,
+                    bank, lora_idx, lora_kernel, tp):
+    memory = _run_audio_encoder(cfg, params, frontend)
+    for i, bp in enumerate(params.dec_blocks):
+        xk, xv = cross_kv(cfg, bp.cross, memory)
+        # the decoder's self-attention is the only LoRA site (ROADMAP C3)
+        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
+                            kernel=lora_kernel, tp=tp)
+        h, kv = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
+                         window=window, lora=lora, tp=tp)
+        x = x + h
+        x = x + cross_attend(cfg, bp.cross,
+                             rmsnorm(x, bp.lnc, cfg.rmsnorm_eps), xk, xv)
+        x = x + _ffn(cfg, bp, x, tp)
+        _write_kv(cfg, cache, i, kv, window)
+        _write_cross(cache, i, xk, xv)
+    return x
+
+
 def _run_hybrid_full(cfg, params: HybridLM, x, cache, *, window, bank,
                      lora_idx, lora_kernel, tp):
     # one bank layer: the shared block's adapters at every application
@@ -325,24 +494,35 @@ def _run_rwkv_full(cfg, params: RWKVLM, x, cache, *, window, bank,
 
 
 _RUN_FULL = {"dense": _run_dense_full, "moe": _run_dense_full,
-             "hybrid": _run_hybrid_full, "ssm": _run_rwkv_full}
+             "hybrid": _run_hybrid_full, "ssm": _run_rwkv_full,
+             "vlm": _run_vlm_full, "audio": _run_audio_full}
 
 
-def prefill(cfg, params: BaseLM, tokens, *, bank=None, lora_idx=None,
-            cache_len: Optional[int] = None, window: Optional[int] = None,
-            cache_dtype=None, lora_kernel="einsum", tp=None):
-    """Prefill a batch of same-length rows. Returns (last_logits (B,V),
-    cache)."""
+def prefill(cfg, params: BaseLM, tokens, *, frontend=None, bank=None,
+            lora_idx=None, cache_len: Optional[int] = None,
+            window: Optional[int] = None, cache_dtype=None,
+            lora_kernel="einsum", tp=None):
+    """Prefill a batch of same-length rows. ``frontend`` (B, M, d): the
+    VLM's patch or the audio encoder's frame embeddings, which those
+    families need and the others take no part of. Returns (last_logits
+    (B,V), cache)."""
     _check_family(cfg)
     window = cfg.sliding_window if window is None else window
     B, S = tokens.shape
     cache_len = cache_len or (min(S, window) if window else S)
     x = _embed(params, tokens)
+    cross = {}
+    if n_cross_applications(cfg):
+        if frontend is None:
+            raise ValueError(f"{cfg.name}: the {cfg.family} prefill needs "
+                             "a frontend (B, M, d)")
+        cross = {"frontend": frontend}
     cache = init_cache(cfg, B, cache_len, cache_dtype or params.embed.dtype,
-                       device=tokens.device, tp=tp)
+                       device=tokens.device, tp=tp,
+                       enc_len=frontend.shape[1] if cross else None)
     x = _RUN_FULL[cfg.family](cfg, params, x, cache, window=window,
                               bank=bank, lora_idx=lora_idx,
-                              lora_kernel=lora_kernel, tp=tp)
+                              lora_kernel=lora_kernel, tp=tp, **cross)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
     h_last = rmsnorm(x[:, -1], params.ln_f, cfg.rmsnorm_eps)
@@ -393,8 +573,36 @@ def _decode_rwkv(cfg, params: RWKVLM, cache, x, pos, *, window, bank,
     return x
 
 
+def _decode_vlm(cfg, params: VisionLM, cache, x, pos, *, window, bank,
+                lora_idx, lora_kernel, tp, mla_absorbed):
+    per = cfg.cross_attn_every - 1
+    for p, cb in enumerate(params.cross_blocks):
+        for i in range(p * per, (p + 1) * per):
+            x = _dense_block_decode(cfg, params.self_blocks[i], x,
+                                    cache["k"][i], cache["v"][i], pos,
+                                    window, None, tp)
+        x = _cross_block(cfg, cb, x, cache["xk"][p], cache["xv"][p])
+    return x
+
+
+def _decode_audio(cfg, params: EncDecLM, cache, x, pos, *, window, bank,
+                  lora_idx, lora_kernel, tp, mla_absorbed):
+    # no adapter in decode: the JAX decode binds none (ROADMAP C3)
+    for i, bp in enumerate(params.dec_blocks):
+        h, _ = gqa_decode(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
+                          cache["k"][i], cache["v"][i], pos, window=window,
+                          tp=tp)
+        x = x + h
+        x = x + cross_attend(cfg, bp.cross,
+                             rmsnorm(x, bp.lnc, cfg.rmsnorm_eps),
+                             cache["xk"][i], cache["xv"][i])
+        x = x + _ffn(cfg, bp, x, tp)
+    return x
+
+
 _DECODE = {"dense": _decode_dense, "moe": _decode_dense,
-           "hybrid": _decode_hybrid, "ssm": _decode_rwkv}
+           "hybrid": _decode_hybrid, "ssm": _decode_rwkv,
+           "vlm": _decode_vlm, "audio": _decode_audio}
 
 
 def decode_step(cfg, params: BaseLM, cache, tokens, *, bank=None,

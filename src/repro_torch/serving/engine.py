@@ -29,7 +29,16 @@ every rebuild and install. Bank kernels at tp > 1: B3a/B3b (padded) and
 B4a/B4b (bucketed). Tokens are identical on every rank (the hidden state
 after each all-reduce is), and match the single-device engine's by token,
 not by bit: the all-reduce reorders the d-sums. Not ported: data
-parallelism, the VLM and audio frontends (ROADMAP).
+parallelism (ROADMAP).
+
+The VLM and audio families take a frontend at prefill: as the JAX engine
+does, a group of n rows gets fp32 zeros (n, M, d), M the config's
+frontend tokens or encoder frames. Zeros reach the output as nothing
+(the encoder's memory and the cross K/V are exactly 0), so the
+engine's tokens cannot show a fault of the encoder or the
+cross-attention; the model-level tests feed a nonzero frontend. The
+cross K/V (``xk``/``xv``) are scattered into the slots with the rest of
+the cache and are not paged.
 
 ``page_pool`` (a ``serving.paging.UnifiedPagePool``, optional) keeps the
 accounts of the unified paging the JAX engine keeps: KV pages for each
@@ -116,8 +125,11 @@ class ServingEngine:
         self._rebuild_bank(dict(adapter_ranks))
         self.bank_rebuilds = 0          # the initial build doesn't count
         # the cache is fp32 whatever the params' dtype, as in the JAX engine
+        self.enc_len = (cfg.encoder.n_frames if cfg.encoder
+                        else (cfg.n_frontend_tokens or None))
         self.cache = M.init_cache(cfg, max_batch, max_len, torch.float32,
-                                  device=self.device, tp=self.tp)
+                                  device=self.device, tp=self.tp,
+                                  enc_len=self.enc_len)
 
     # -- placement-aware bank management --------------------------------
     def _rebuild_bank(self, adapter_ranks: Dict[str, int]) -> None:
@@ -242,6 +254,7 @@ class ServingEngine:
                             dtype=torch.int32, device=self.device)
         aidx_t = torch.tensor(aidx, dtype=torch.int32, device=self.device)
         logits, cache1 = M.prefill(self.cfg, self.params, toks,
+                                   frontend=self.zero_frontend(n),
                                    bank=self.bank,
                                    lora_idx=self.lora_bank.lora_idx(aidx_t),
                                    cache_len=self.max_len,
@@ -271,6 +284,15 @@ class ServingEngine:
             self.tracer.record("prefill", t0, t, cat="iteration",
                                track=self._track, attrs=attrs)
 
+    def zero_frontend(self, n: int):
+        """The frontend of a prefill group of ``n`` rows: the JAX engine's
+        fp32 zeros (a type-less ``jnp.zeros``) of (n, M, d) for the VLM
+        and audio families, None for the others."""
+        if not M.n_cross_applications(self.cfg):
+            return None
+        return torch.zeros((n, self.enc_len, self.cfg.d_model),
+                           dtype=torch.float32, device=self.device)
+
     def _page_in(self, req: ServeRequest, ai: int, length: int) -> None:
         """Unified paging at admission: KV pages for the prompt, and the
         adapter's pages (paged in on first use, pinned while
@@ -293,8 +315,8 @@ class ServingEngine:
 
     def _merge_many(self, cache1, slots, length: int) -> None:
         """Scatter n freshly prefilled rows (batch axis 1 everywhere but
-        "pos": KV and recurrent state alike) into their slots, in
-        place."""
+        "pos": KV, cross K/V and recurrent state alike) into their slots,
+        in place."""
         for k, v in self.cache.items():
             if k == "pos":
                 v[slots] = length

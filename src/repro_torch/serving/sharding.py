@@ -19,8 +19,8 @@ owns every placement decision:
 
 Where the JAX package falls back to replicating a dim that the mesh
 does not divide (``fit_spec``), this one refuses the config; it refuses
-MoE and MLA configs, and the hybrid and SSM families, too (ROADMAP
-queue A item 9).
+MoE and MLA configs, and the hybrid, SSM, VLM and audio families, too
+(ROADMAP queue A item 9).
 """
 from __future__ import annotations
 
@@ -64,12 +64,12 @@ class EngineSharding:
     """Placement for one rank of a tensor-parallel engine."""
 
     def __init__(self, tp: TensorParallel, cfg):
-        if cfg.family in ("hybrid", "ssm"):
+        if cfg.family in ("hybrid", "ssm", "vlm", "audio"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not sharded at "
                 "tp > 1; the port shards the dense layout only "
-                "(PARAM_SPLIT). Its Mamba2/RWKV-6 layers are ROADMAP "
-                "queue A item 9")
+                "(PARAM_SPLIT). Its Mamba2/RWKV-6 layers, cross-attention "
+                "and encoder are ROADMAP queue A item 9")
         if cfg.moe is not None or cfg.mla is not None:
             raise NotImplementedError(
                 f"{cfg.name}: MoE and MLA layers are not sharded at tp > 1; "

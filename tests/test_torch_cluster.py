@@ -266,6 +266,27 @@ def test_cluster_trace_is_the_jax_launchers(setup):
     assert [fields(r) for r in got] == [fields(r) for r in want]
 
 
+def test_jax_command_line_with_prompt_len_builds_the_same_trace(setup):
+    """The JAX launcher's ``--prompt-len N`` is the port's ``--prompt-lens
+    N``: the same command line gives the JAX ``build_trace``'s trace."""
+    argv = ["--arch", "llama-7b-paper", "--servers", "2", "--adapters", "6",
+            "--requests", "10", "--prompt-len", "9", "--max-new", "5",
+            "--duration", "2.5", "--seed", "4"]
+    args = launch.parse_args(argv + ["--config", "smoke", "--device", "cpu"])
+    assert args.prompt_lens == [9]
+    assert launch.parse_args(["--prompt-lens", "9"]).prompt_lens == [9]
+    adapters = launch.cluster_adapters(args.adapters)
+    got = launch.build_cluster_trace(adapters, setup[0], args.requests,
+                                     args.prompt_lens, args.max_new,
+                                     args.duration, args.seed)
+    jads = [JAdapterInfo(**dataclasses.asdict(a)) for a in adapters]
+    want = jax_build_trace(jads, setup[0], 10, 9, 5, 2.5, 4)
+    fields = lambda r: {**dataclasses.asdict(r), "phase": r.phase.value}
+    assert [fields(r) for r in got] == [fields(r) for r in want]
+    with pytest.raises(SystemExit):
+        launch.parse_args(["--prompt-len", "9", "--prompt-lens", "8,12"])
+
+
 def test_launcher_serves_through_the_facade(capsys, monkeypatch):
     monkeypatch.setattr(sys, "argv", [
         "serve", "--servers", "2", "--config", "smoke", "--device", "cpu",

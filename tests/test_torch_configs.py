@@ -52,16 +52,17 @@ def _close(t, j):
 
 
 def test_registry_holds_the_ported_families_only():
+    # every JAX config is ported: the registry holds each arch id, and an
+    # id of neither package is refused
     ported = {"llama-7b-paper", "deepseek-v2-lite-16b",
-              "llama4-scout-17b-a16e", "zamba2-7b", "rwkv6-7b", *DENSE}
-    assert set(tcfg.ARCH_IDS) == ported
-    for arch in sorted(set(jcfg.ARCH_IDS) - ported):
-        assert jcfg.get_config(arch).family not in ("dense", "moe",
-                                                     "hybrid", "ssm")
+              "llama4-scout-17b-a16e", "zamba2-7b", "rwkv6-7b",
+              "llama-3.2-vision-90b", "seamless-m4t-large-v2", *DENSE}
+    assert set(tcfg.ARCH_IDS) == ported == set(jcfg.ARCH_IDS)
+    assert {tcfg.get_config(a).family for a in ported} == {
+        "dense", "moe", "hybrid", "ssm", "vlm", "audio"}
+    for getter in (tcfg.get_config, tcfg.get_smoke_config):
         with pytest.raises(KeyError):
-            tcfg.get_config(arch)
-        with pytest.raises(KeyError):
-            tcfg.get_smoke_config(arch)
+            getter("llama-3.2-vision-90b-smoke")
 
 
 def _serve(cfg, params, weights, *, jax_side, **kw):

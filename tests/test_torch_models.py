@@ -304,8 +304,11 @@ def test_bank_layouts_match_jax(setup):
 
 
 def test_other_families_raise(setup):
-    # the families still refused (the hybrid and SSM ones are served)
-    for family in ("vlm", "audio"):
-        cfg = dataclasses.replace(setup[0], family=family)
-        with pytest.raises(NotImplementedError, match="item 10"):
+    # every family of the JAX package is served; one it lacks is refused,
+    # and so is a known family without the state-space kind it needs
+    for family, ssm in (("diffusion", None), ("hybrid", None)):
+        cfg = dataclasses.replace(setup[0], family=family, ssm=ssm)
+        with pytest.raises(NotImplementedError, match="is not one of"):
             TM.init_params(cfg, 0, device="cpu")
+        with pytest.raises(NotImplementedError, match="is not one of"):
+            TM.init_cache(cfg, 1, 4, device="cpu")

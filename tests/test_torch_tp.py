@@ -195,8 +195,9 @@ def test_layout_refusals(monkeypatch):
     cfg = get_smoke_config(MODEL)
     with pytest.raises(ValueError, match="divisible"):
         EngineSharding(TensorParallel(None, 0, 3), cfg)
-    # the recurrent families run at tp = 1 only (ROADMAP A9)
-    for arch in ("zamba2-7b", "rwkv6-7b"):
+    # the recurrent, VLM and audio families run at tp = 1 only (ROADMAP A9)
+    for arch in ("zamba2-7b", "rwkv6-7b", "llama-3.2-vision-90b",
+                 "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="item 9"):
             EngineSharding(TensorParallel(None, 0, 2),
                            get_smoke_config(arch))
