@@ -241,6 +241,40 @@ Phases (any failure raises; the script then exits non-zero):
                run upcast in place; a nonzero frontend moves the logits
                (printed). Each run logs TTFT, TBT, tok/s and peak memory;
                the kernels line adds its launches.
+ 13. tpfam   — after phase 12, every family at tp = 2: two ranks on the
+               one card over gloo, as phase 6 (spawned once; each rank
+               draws its slice of the weights block by block,
+               ``init_params(tp=...)``): deepseek-v2-lite-16b at full
+               width and depth (the expert-parallel MoE at prefill, its
+               all-to-all and all-gather; MLA split by head; the drop-free
+               MoE at decode), llama4-scout-17b-a16e at full width and 8
+               layers, zamba2-7b and rwkv6-7b at full width and depth,
+               seamless-m4t-large-v2 at full width and depth and
+               llama-3.2-vision-90b at full width and 10 layers (its gates
+               set nonzero), bf16 weights from a seed, fp32 caches,
+               phase 6's trace (8 requests over its 5 adapters, prompts 64
+               and 128, 16 new tokens, decode_block 4, max batch 8) in
+               both bank modes. Each family: B3a/B3b (padded) or B4a/B4b
+               (bucketed) launch once per LoRA call and B5 as at tp = 1
+               (zamba2's 16 local heads x 112; seamless's 8 x 64, fp32 on
+               the encoder and cross calls), counted from 0 around each
+               run; both ranks emit the same tokens and logits; padded ==
+               bucketed tokens and first-prefill logits bit for bit; the
+               fp32 2-layer model (the VLM: one period of 5) at tp = 2
+               emits the tokens of tp = 1 and its first-prefill logits
+               lie within 1e-3 of tp = 1's, with a nonzero frontend too
+               for seamless and the VLM; the MoE family's tp = 1
+               reference runs ``moe_ffn_ep_ref(n=2)`` at prefill
+               (``EPReference``). The bf16 tp = 2 logits' distance from tp
+               = 1 (zero and nonzero frontends) is printed, not asserted:
+               a random router flips near-ties between bf16 runs and the
+               recurrent stacks amplify one rounding (PERF.md, ROADMAP
+               C13). B3a/B3b/B4a/B4b at each tp = 2 width and B5 on rank
+               0's copied calls against their plain versions, bf16 and
+               fp32, timed, bounded, with the SGMV yardsticks; the
+               collectives' ms per call (all-reduce, and the MoE's
+               all-to-all and all-gather) and rank 0's TTFT, TBT and peak
+               memory logged.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -380,8 +414,9 @@ class MainPathCalls:
                       (batched, "sgmv_bucketed_fused"),
                       (attention, "flash_mha")]
         self.orig = {}
-        # (name, layout) -> (args, kwargs, dest); with ``widths``, keyed
-        # (name, layout) + ``_call_widths``: a smallest and a largest call
+        # (name, layout) -> (args, kwargs, dest); with ``widths`` (True:
+        # ``_call_widths``, or a function of (name, args)), keyed (name,
+        # layout) + its widths: a smallest and a largest call
         # at each width
         self.widths = widths
         self.calls = {}
@@ -410,7 +445,8 @@ class MainPathCalls:
             x = args[0]
             rows = x.shape[0] * x.shape[2] if name == "flash_mha" \
                 else x.shape[0]
-            extra = _call_widths(name, args) if self.widths else ()
+            widths = _call_widths if self.widths is True else self.widths
+            extra = widths(name, args) if widths else ()
             for layout, keep in (("decode", lambda a, b: a < b),
                                  ("prefill", lambda a, b: a > b)):
                 key = (name, layout) + extra
@@ -957,10 +993,15 @@ def _tp_trace(cfg):
     return build_trace(cfg, 8, (64, 128), 16, seed=0)
 
 
+def _tp_ranks(cfg):
+    """Phase 6's trace's adapters and their ranks."""
+    return {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in _tp_trace(cfg)}
+
+
 def _tp_weights(cfg, dev):
     """Phase 6's trace's adapter ranks and bf16 weights (phase 2's seed)."""
     from repro_torch.launch.serve import adapter_weights
-    ranks = {aid: int(aid.rsplit("-r", 1)[1]) for aid, _, _ in _tp_trace(cfg)}
+    ranks = _tp_ranks(cfg)
     return ranks, adapter_weights(cfg, ranks, dtype=torch.bfloat16,
                                   device=dev, seed=3)
 
@@ -1195,19 +1236,25 @@ def phase_parity(dev):
 # ---------------------------------------------------------------------------
 
 
-def _time_all_reduce(x, reps=20):
-    """Median host ms of one all-reduce of ``x`` over the default group,
-    the card synchronised before and after; every rank calls it."""
-    import torch.distributed as dist
+def _time_collective(fn, reps=20):
+    """Median host ms of one collective ``fn()``, the card synchronised
+    before and after; every rank calls it."""
     times = []
     for i in range(reps + 3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dist.all_reduce(x)
+        fn()
         torch.cuda.synchronize()
         if i >= 3:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def _time_all_reduce(x):
+    """``_time_collective`` of an all-reduce of ``x`` over the default
+    group."""
+    import torch.distributed as dist
+    return _time_collective(lambda: dist.all_reduce(x))
 
 
 def _tp_rank(rank, tp, out_dir):
@@ -2736,6 +2783,434 @@ def phase_encdec_vlm(dev, smi):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 13: every family at tp = 2
+# ---------------------------------------------------------------------------
+ZAMBA, RWKV = "zamba2-7b", "rwkv6-7b"
+# arch -> the layers phase 13 serves at full width (None: all)
+TP_FAMILIES = {DEEPSEEK: None, LLAMA4: LLAMA4_LAYERS, ZAMBA: None,
+               RWKV: None, SEAMLESS: None, VISION: VISION_LAYERS}
+_SPLIT = {"padded": ("B3a", "B3b"), "bucketed": ("B4a", "B4b")}
+
+
+def _family_cfg(arch, fp32=False):
+    """Phase 13's config of ``arch``: full width, at ``TP_FAMILIES``'s
+    depth; with ``fp32``, the parity's 2 layers (the VLM one period of 5,
+    which holds its cross block; seamless 2 encoder layers too)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if not fp32:
+        n = TP_FAMILIES[arch]
+        return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
+    cfg = dataclasses.replace(cfg, n_layers=cfg.cross_attn_every
+                              if cfg.family == "vlm" else 2)
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=2))
+    return cfg
+
+
+def _family_params(cfg, dev, dtype, seed, tp=None):
+    """Weights from ``seed`` (a rank's slice, drawn block by block, with
+    ``tp``); the VLM's gates set nonzero in place, as in phase 12."""
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, seed, dtype=dtype, device=dev, tp=tp)
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            for i, cb in enumerate(params.cross_blocks):
+                cb.gate_attn.fill_(0.5 + 0.25 * i)
+                cb.gate_ffn.fill_(-0.4 - 0.25 * i)
+    return params
+
+
+def _family_frontend(cfg, eng):
+    """A nonzero N(0, 0.02^2) fp32 frontend for the first prefill group
+    of phase 6's trace (4 rows), from a seed; None for a family that
+    takes none."""
+    from repro_torch.models import model as M
+    if not M.n_cross_applications(cfg):
+        return None
+    g = torch.Generator(device=eng.device).manual_seed(7)
+    return torch.randn((4, eng.enc_len, cfg.d_model), generator=g,
+                       device=eng.device) * 0.02
+
+
+def _fe_logits(cfg, eng, mesh=None):
+    """The first prefill group's logits with the nonzero frontend (model
+    level: the engines feed zeros), fp32 on the host."""
+    from repro_torch.models import model as M
+    toks, idx = _group(eng, _tp_trace(cfg), 64)
+    lg, _ = M.prefill(cfg, eng.params, toks,
+                      frontend=_family_frontend(cfg, eng), bank=eng.bank,
+                      lora_idx=idx, lora_kernel="sgmv", tp=mesh)
+    assert torch.isfinite(lg).all()
+    return lg.float().cpu()
+
+
+class EPReference:
+    """While entered, the model's MoE layers run ``moe_ffn_ep_ref(n=TP)``
+    at a prefill whose length TP divides (what TP expert-parallel ranks
+    compute, on one process) and the drop-free path elsewhere: the tp =
+    1 reference of the tp = 2 MoE path."""
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        from repro_torch.models import model as M
+        self.M, self.orig = M, M.moe_ffn
+
+        def moe_ffn(cfg, p, x, **kw):
+            if x.shape[1] > 1 and x.shape[1] % TP == 0:
+                return ffn.moe_ffn_ep_ref(cfg, p, x, TP)
+            return self.orig(cfg, p, x)
+        M.moe_ffn = moe_ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.M.moe_ffn = self.orig
+
+
+def _tp_call_widths(name, args):
+    """The widths a tp call runs at: (d_local, r) of B3a, (d_local,) of
+    B4a, the output's d_out_local of B3b and B4b, (hd,) of B5."""
+    x = args[0]
+    return {"sgmv_shrink": lambda: (x.shape[1], args[1].shape[-1]),
+            "sgmv_multibank_shrink": lambda: (x.shape[1],),
+            "sgmv_expand": lambda: (args[1].shape[-1],),
+            "sgmv_multibank_expand": lambda: (args[1][0].shape[-1],),
+            "flash_mha": lambda: (x.shape[-1],)}[name]()
+
+
+def _tp_path_launches(cfg, mode, passes, groups):
+    """``_path_launches`` on the tensor-parallel path: each of the
+    mode's two split kernels once per LoRA call, where tp = 1 runs B1 or
+    B2; B5 as at tp = 1 (a family's local heads are MHA where its heads
+    are)."""
+    want = _path_launches(cfg, mode, passes, groups)
+    n = want.pop("B1") + want.pop("B2")
+    want.update({"B1": 0, "B2": 0}, **{kid: n for kid in _SPLIT[mode]})
+    return want
+
+
+def _collective_times(cfg, dev):
+    """ms per call of the collectives phase 13's path makes, at its
+    shapes: the hidden state's all-reduce at decode and prefill, the
+    rank-r intermediate's; for the MoE family the expert-parallel
+    path's all-to-all of its (E, C, d) buffer (phase 6's 4 x 128 group)
+    and all-gather of the (4, 64, d) chunk."""
+    import torch.distributed as dist
+    from repro_torch.models import ffn
+    d, bf = cfg.d_model, torch.bfloat16
+    out = {}
+    for what, shape in (("all_reduce hidden decode", (8, 1, d)),
+                        ("all_reduce hidden prefill", (4, 128, d)),
+                        ("all_reduce lora h decode", (128, 128))):
+        out[f"{what} {shape}"] = _time_all_reduce(
+            torch.ones(shape, dtype=bf, device=dev))
+    if cfg.moe is not None:
+        e = cfg.moe
+        C = ffn.ep_capacity(4 * 128 // TP, e.top_k, e.n_experts)
+        x = torch.ones((e.n_experts, C, d), dtype=bf, device=dev)
+        y = torch.empty_like(x)
+        out[f"all_to_all EP buffer {tuple(x.shape)}"] = _time_collective(
+            lambda: dist.all_to_all_single(y, x))
+        x = torch.ones((4, 128 // TP, d), dtype=bf, device=dev)
+        parts = [torch.empty_like(x) for _ in range(TP)]
+        out[f"all_gather EP chunk {tuple(x.shape)}"] = _time_collective(
+            lambda: dist.all_gather(parts, x))
+    return out
+
+
+def _family_rank(rank, tp, out_dir):
+    """One rank of phase 13, spawned with a default gloo group: every
+    family of ``TP_FAMILIES`` at full width in bf16 (phase 6's trace,
+    both bank modes), then at the fp32 parity's 2 layers. Writes
+    ``family-rank{rank}.pt``; rank 0 also ``family-calls-{arch}.pt``,
+    copies of its calls of every kernel of the path."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.launch.serve import adapter_weights, serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_engine_mesh(1, tp, device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    wrappers = _wrappers()
+    names = ("all_reduce", "all_gather", "all_to_all_single")
+    orig = {n: getattr(dist, n) for n in names}
+    counts = {n: 0 for n in names}
+
+    def counted(n):
+        def call(*a, **kw):
+            counts[n] += 1
+            return orig[n](*a, **kw)
+        return call
+    out = {}
+    for arch in TP_FAMILIES:
+        cfg = _family_cfg(arch)
+        t0 = time.monotonic()
+        params = _family_params(cfg, dev, torch.bfloat16, 0, tp=mesh)
+        torch.cuda.synchronize()
+        o = out[arch] = {"bf16": {}, "fp32": {}, "fp32_logits": {},
+                         "init_s": time.monotonic() - t0}
+        rec = MainPathCalls(tp=True, widths=_tp_call_widths)
+        flash = FlashCalls(rec)
+        for mode in ("padded", "bucketed"):
+            # the main path: counts at 0 just before each engine run, read
+            # just after
+            for k in wrappers.values():
+                k.launches = 0
+            n0 = dict(counts)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for n in names:
+                setattr(dist, n, counted(n))
+            try:
+                with flash:
+                    eng, reqs, summ = _serve_tp_trace(cfg, params, dev, mode,
+                                                      mesh)
+                    torch.cuda.synchronize()
+            finally:
+                for n in names:
+                    setattr(dist, n, orig[n])
+            b = o["bf16"][mode] = dict(
+                tokens=[r.output for r in reqs], summary=summ,
+                grew={kid: k.launches for kid, k in wrappers.items()},
+                passes=eng.prefill_dispatches + eng.decode_iterations,
+                prefills=eng.prefill_dispatches,
+                collectives={n: counts[n] - n0[n] for n in names},
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+            # off the counted run
+            b["logits"] = _first_logits(cfg, eng, mesh=mesh)
+            if _takes_frontend(cfg):
+                b["logits_fe"] = _fe_logits(cfg, eng, mesh)
+            del eng
+            _free()
+        if rank == 0:
+            torch.save({"calls": {k: _move(v, "cpu")
+                                  for k, v in rec.calls.items()},
+                        "flash": {k: _move(v, "cpu")
+                                  for k, v in flash.calls.items()}},
+                       Path(out_dir) / f"family-calls-{arch}.pt")
+        o["collective_ms"] = _collective_times(cfg, dev)
+        del params, rec, flash
+        _free()
+        cfg2 = _family_cfg(arch, fp32=True)
+        params2 = _family_params(cfg2, dev, torch.float32, 1, tp=mesh)
+        ranks = _tp_ranks(cfg2)
+        weights2 = adapter_weights(cfg2, ranks, dtype=torch.float32,
+                                   device=dev, seed=4)
+        for mode in ("padded", "bucketed"):
+            eng, reqs, _ = serve(cfg2, params2, _tp_trace(cfg2),
+                                 weights=weights2, bank_mode=mode,
+                                 lora_kernel="sgmv", decode_block=4,
+                                 max_batch=8, mesh=mesh, device=dev)
+            o["fp32"][mode] = [r.output for r in reqs]
+            o["fp32_logits"][mode] = _first_logits(cfg2, eng, mesh=mesh)
+            if _takes_frontend(cfg2):
+                o["fp32_logits"][mode + "_fe"] = _fe_logits(cfg2, eng, mesh)
+            del eng
+        del params2, weights2
+        _free()
+    torch.save(out, Path(out_dir) / f"family-rank{rank}.pt")
+
+
+def _takes_frontend(cfg):
+    """Whether the family takes a frontend (the VLM and audio ones)."""
+    from repro_torch.models import model as M
+    return bool(M.n_cross_applications(cfg))
+
+
+def _family_refs(dev):
+    """The tp = 1 references of phase 13, one model on the card at a
+    time: the bf16 first-prefill logits at full width (zero and nonzero
+    frontends), the fp32 2-layer trace's tokens and first-prefill logits
+    (the MoE family under ``EPReference``)."""
+    from contextlib import nullcontext
+    from repro_torch.launch.serve import adapter_weights, serve
+    from repro_torch.serving import ServingEngine
+    refs = {}
+    for arch in TP_FAMILIES:
+        cfg = _family_cfg(arch)
+        ep = EPReference() if cfg.moe is not None else nullcontext()
+        params = _family_params(cfg, dev, torch.bfloat16, 0)
+        ranks, weights = _tp_weights(cfg, dev)
+        eng = ServingEngine(cfg, params, ranks, max_batch=8, max_len=160,
+                            bank_mode="padded", lora_kernel="sgmv",
+                            device=dev)
+        for aid, w in weights.items():
+            eng.install_adapter(aid, ranks[aid], w)
+        r = refs[arch] = {}
+        log(f"tpfam ref {arch}: tp = 1, {cfg.n_layers} layers, bf16")
+        with ep:
+            r["bf16"] = _first_logits(cfg, eng)
+            if _takes_frontend(cfg):
+                r["bf16_fe"] = _fe_logits(cfg, eng)
+        del eng, params, weights
+        _free()
+        cfg2 = _family_cfg(arch, fp32=True)
+        params2 = _family_params(cfg2, dev, torch.float32, 1)
+        ranks = _tp_ranks(cfg2)
+        weights2 = adapter_weights(cfg2, ranks, dtype=torch.float32,
+                                   device=dev, seed=4)
+        with ep:
+            eng, reqs, _ = serve(cfg2, params2, _tp_trace(cfg2),
+                                 weights=weights2, bank_mode="padded",
+                                 lora_kernel="sgmv", decode_block=4,
+                                 max_batch=8, device=dev)
+            r["fp32"] = [q.output for q in reqs]
+            r["fp32_logits"] = _first_logits(cfg2, eng)
+            if _takes_frontend(cfg2):
+                r["fp32_fe"] = _fe_logits(cfg2, eng)
+        del eng, params2, weights2
+        _free()
+    return refs
+
+
+def _dist(a, b):
+    err = (a - b).abs().max().item()
+    return err, b.abs().max().item()
+
+
+def _family_checks(arch, outs, ref, smi):
+    """Phase 13's assertions on one family: launches, both ranks' tokens
+    and logits equal, padded == bucketed bit for bit, the fp32 2-layer
+    tokens of tp = 1 and its logits within 1e-3; the bf16 distance from
+    tp = 1 printed. Returns rank 0's launches of the main path."""
+    cfg = _family_cfg(arch)
+    tag = f"tpfam {arch}"
+    launches = {kid: 0 for kid in KERNELS}
+    for r, o in enumerate(outs):
+        fam = o[arch]
+        for mode in ("padded", "bucketed"):
+            b = fam["bf16"][mode]
+            want = _tp_path_launches(cfg, mode, b["passes"], b["prefills"])
+            assert b["grew"] == want, (arch, r, mode, b["grew"], want)
+            assert all(len(t) == 16 for t in b["tokens"]), arch
+            assert all(0 <= t < cfg.vocab_size for q in b["tokens"]
+                       for t in q)
+            assert torch.isfinite(b["logits"]).all()
+            if r == 0:
+                for kid, n in b["grew"].items():
+                    launches[kid] += n
+                s = b["summary"]
+                log(f"{tag} rank 0 layers={cfg.n_layers} mode={mode} | "
+                    f"{smi}: finished={s['finished']}/8 passes="
+                    f"{b['passes']} collectives {b['collectives']} "
+                    f"launches { {k: v for k, v in b['grew'].items() if v} }"
+                    f" p50_ttft_ms={s['p50_ttft'] * 1e3:.2f}"
+                    f" p95_ttft_ms={s['p95_ttft'] * 1e3:.2f}"
+                    f" mean_tbt_ms={s['mean_tbt'] * 1e3:.3f}"
+                    f" decode_tok_s={s['decode_tok_s']:.1f}"
+                    f" wall_s={s['wall_s']:.3f} peak_gb={b['peak_gb']:.2f}"
+                    f" (init {fam['init_s']:.1f}s)")
+                continue
+            a = outs[0][arch]["bf16"][mode]
+            assert b["tokens"] == a["tokens"], (arch, mode, "ranks' tokens")
+            assert torch.equal(b["logits"], a["logits"]), (arch, mode)
+            for key in ("logits_fe",):
+                if key in a:
+                    assert torch.equal(b[key], a[key]), (arch, mode, key)
+        assert fam["fp32"] == outs[0][arch]["fp32"], (arch, "fp32 ranks")
+    o = outs[0][arch]
+    pad, bkt = o["bf16"]["padded"], o["bf16"]["bucketed"]
+    assert pad["tokens"] == bkt["tokens"], (arch, "modes' tokens differ")
+    assert torch.equal(pad["logits"], bkt["logits"]), (arch, "modes' logits")
+    if "logits_fe" in pad:
+        assert torch.equal(pad["logits_fe"], bkt["logits_fe"])
+    log(f"{tag}: both ranks emit the same tokens and logits; padded "
+        f"(B3a/B3b) == bucketed (B4a/B4b) tokens and first-prefill "
+        f"logits bit for bit")
+    for what, got, want in (("zero frontend", pad["logits"], ref["bf16"]),
+                            ("nonzero frontend", pad.get("logits_fe"),
+                             ref.get("bf16_fe"))):
+        if got is None:
+            continue
+        err, scale = _dist(got, want)
+        agree = (got.argmax(-1) == want.argmax(-1)).tolist()
+        log(f"{tag} bf16 first prefill logits ({what}) tp = 2 vs tp = 1"
+            f"{' (EPReference)' if cfg.moe else ''}: max abs diff "
+            f"{err:.4e} of max |logit| {scale:.4f} ({err / scale:.3%}; "
+            f"printed, not asserted); argmax agree {agree}")
+    for mode in ("padded", "bucketed"):
+        assert o["fp32"][mode] == ref["fp32"], (arch, mode, "fp32 tokens")
+        err, _ = _dist(o["fp32_logits"][mode], ref["fp32_logits"])
+        line = f"prefill logits max abs diff vs tp = 1 {err:.3e}"
+        assert err <= 1e-3, (arch, mode, err)
+        if mode + "_fe" in o["fp32_logits"]:
+            e2, _ = _dist(o["fp32_logits"][mode + "_fe"], ref["fp32_fe"])
+            assert e2 <= 1e-3, (arch, mode, "nonzero frontend", e2)
+            line += f"; with a nonzero frontend {e2:.3e}"
+        log(f"{tag} fp32 {_family_cfg(arch, True).n_layers} layers {mode}: "
+            f"tokens == tp = 1's; {line} (tol 1e-3)")
+    for what, ms in o["collective_ms"].items():
+        log(f"{tag} {what}: {ms:.4f} ms (gloo, {TP} ranks on one card, "
+            "host clock)")
+    return launches
+
+
+def _family_kernels(arch, calls, flash, results):
+    """B3a/B3b/B4a/B4b on rank 0's copied calls at each of the family's
+    tp = 2 widths (a decode step's and the largest prefill group's; the
+    audio family's adapters run at prefill only: its smallest and
+    largest group), and B5 on its MHA calls, against their plain
+    versions in bf16 and fp32, timed and bounded, with the SGMV
+    kernels' yardsticks."""
+    cfg = _family_cfg(arch)
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    short = arch.split("-")[0]
+    kid_of = {KERNELS[k][0]: k for k in ("B3a", "B3b", "B4a", "B4b")}
+    for key in sorted(k for k in calls if k[0] in kid_of):
+        name, layout, *widths = key
+        kid = kid_of[name]
+        args, kw, dest = _move(calls[key], dev)
+        if cfg.family == "audio":
+            layout = {"decode": "minprefill", "prefill": "maxprefill"}[layout]
+        label = f"tp{TP}-{short}-{layout}-w{'x'.join(map(str, widths))}"
+        _check_and_time(kid, label, args, kw, dest, flush, results)
+        _yardstick(kid, label, args, kw, dest, flush)
+    picks = {}
+    if cfg.family == "hybrid":
+        picks["causal"] = flash[(True, 4, 128, 128)]
+    elif cfg.family == "audio":
+        M = cfg.encoder.n_frames
+        picks = {"encoder": flash[(False, 4, M, M)],
+                 "cross": flash[(False, 4, 128, M)],
+                 "decoder": flash[(True, 4, 128, 128)]}
+    for what, (args, kw) in picks.items():
+        args = _move(args, dev)
+        assert args[0].shape[1] == cfg.n_heads // TP, args[0].shape
+        _check_and_time("B5", f"tp{TP}-{short}-{what}-hd{args[0].shape[-1]}",
+                        args, kw, None, flush, results)
+    del flush
+
+
+def phase_tp_families(dev, smi):
+    """Phase 13. Returns (rank 0's launches of the main path, the
+    kernels' results at the tp = 2 widths)."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.monotonic()
+    refs = _family_refs(dev)
+    log(f"phase tpfam refs (tp = 1): {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_family_rank, TP, backend="gloo", init_file=Path(tmp) / "init",
+              args=(TP, tmp))
+        outs = [torch.load(Path(tmp) / f"family-rank{r}.pt",
+                           weights_only=False) for r in range(TP)]
+        calls = {arch: torch.load(Path(tmp) / f"family-calls-{arch}.pt",
+                                  weights_only=False)
+                 for arch in TP_FAMILIES}
+    log(f"phase tpfam ranks: {time.monotonic() - t0:.1f}s")
+    launches, results = {kid: 0 for kid in KERNELS}, {}
+    for arch in TP_FAMILIES:
+        for kid, n in _family_checks(arch, outs, refs[arch], smi).items():
+            launches[kid] += n
+    t0 = time.monotonic()
+    for arch in TP_FAMILIES:
+        _family_kernels(arch, calls[arch]["calls"], calls[arch]["flash"],
+                        results)
+    log(f"phase tpfam kernels: {time.monotonic() - t0:.1f}s")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2817,6 +3292,14 @@ def main() -> int:
         launches[kid] += n
     log(f"phase encdec: {time.monotonic() - t0:.1f}s; launches "
         f"{ {k: v for k, v in xf_launches.items() if v} }")
+    _free()
+    t0 = time.monotonic()
+    fam_launches, fam_res = phase_tp_families(dev, smi)
+    kres.update(fam_res)
+    for kid, n in fam_launches.items():
+        launches[kid] += n
+    log(f"phase tpfam: {time.monotonic() - t0:.1f}s; launches "
+        f"{ {k: v for k, v in fam_launches.items() if v} }")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

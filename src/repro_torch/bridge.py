@@ -14,7 +14,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.lora.bank import LoRABank
 from repro_torch.models.model import BaseLM, DenseLM, init_params
-from repro_torch.serving.sharding import PARAM_SPLIT
+from repro_torch.launch.mesh import TensorParallel
+from repro_torch.serving.sharding import PARAM_SPLIT, EngineSharding
 
 
 def _t(a, device, dtype=None):
@@ -84,16 +85,20 @@ def bank_from_numpy(cfg, fields, *, device="cuda", dtype=None) -> LoRABank:
                     **idx)
 
 
-def check_shards(full: DenseLM, shards) -> None:
+def check_shards(cfg, full: BaseLM, shards) -> None:
     """Raise unless the ranks' sliced modules put ``full`` back together:
     ``shards`` holds each rank's ``{name: tensor or array}`` (its
     ``named_parameters()``), in rank order. Split parameters are joined
-    along their axis (``serving.sharding.PARAM_SPLIT``); replicated ones
-    must equal the full module's on every rank."""
+    along their axis as ``serving.sharding.EngineSharding`` split them
+    (``PARAM_SPLIT``; the regrouped kv heads and Mamba2's ``[x | z]``
+    by their indices); replicated ones must equal the full module's on
+    every rank."""
+    layout = EngineSharding(TensorParallel(None, 0, len(shards)), cfg)
     for name, want in full.named_parameters():
         parts = [torch.as_tensor(sh[name]) for sh in shards]
-        axis = PARAM_SPLIT.get(name.rsplit(".", 1)[-1])
-        for g in parts if axis is None else [torch.cat(parts, dim=axis)]:
+        leaf = name.rsplit(".", 1)[-1]
+        axis = PARAM_SPLIT.get(leaf)
+        for g in parts if axis is None else [layout.join(parts, axis, leaf)]:
             if not torch.equal(g.to(want.device, want.dtype), want.detach()):
                 raise ValueError(f"{name}: the ranks' slices do not put "
                                  "the full parameter back together")

@@ -20,9 +20,12 @@ share of the run, and the idle gaps between kernels by size.
 process each, spawned here (``launch.mesh.spawn``) and meeting over
 ``--backend`` (nccl: one card per rank; gloo: also on the CPU, or several
 ranks on one card). Every rank serves the same trace; rank 0 prints the
-report. Example, on the CPU:
+report. Every family is served so. Example, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
       --device cpu --mesh 1,2 --backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --config smoke --device cpu \
+      --mesh 1,2 --backend gloo
 
 ``--servers N`` serves through the cluster facade instead, as the JAX
 package's launcher does: ``LoRAServeCluster`` over an ``EngineBackend`` of
@@ -204,7 +207,9 @@ def _serve_rank(rank: int, dp: int, tp: int, args) -> None:
     cfg = (get_config if args.config == "full" else get_smoke_config)(
         args.arch)
     dtype = getattr(torch, args.dtype)
-    params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
+    # the rank's slice only: each block is sliced as it is drawn
+    params = M.init_params(cfg, args.seed, dtype=dtype, device=device,
+                           tp=mesh)
     trace = build_trace(cfg, args.requests, args.prompt_lens, args.max_new,
                         args.seed)
     weights = adapter_weights(

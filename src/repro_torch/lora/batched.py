@@ -29,7 +29,10 @@ rank's d slice of x, sums the rank-r intermediate h over the ranks with
 one ``all_reduce_`` in x's type (the JAX ``psum`` of the shrink's
 output), and expands on the rank's d_out columns: the einsum forms in
 torch, the padded kernel form on B3a/B3b, the bucketed one on B4a/B4b.
-The delta comes out column-sharded like the projection it is added to.
+The delta comes out column-sharded like the projection it is added to;
+a target whose projection is replicated (MLA's ``k`` on ``w_dkv``, named
+in ``make_lora_cb(gathered=...)``) has its B split evenly all the same,
+and its delta is all-gathered to full width.
 """
 from __future__ import annotations
 
@@ -41,8 +44,9 @@ from repro_torch.kernels.ops import (bucketed_layout, live_rows,
                                      sgmv_rank_bucketed)
 from repro_torch.kernels.sgmv import (sgmv_expand, sgmv_multibank_expand,
                                       sgmv_multibank_shrink, sgmv_shrink)
-from repro_torch.models.common import (all_reduce_, rows_to_tokens,
-                                       tokens_to_rows, tp_size)
+from repro_torch.models.common import (all_gather_, all_reduce_,
+                                       rows_to_tokens, tokens_to_rows,
+                                       tp_size)
 
 
 def _local_x(x, A, tp):
@@ -140,7 +144,8 @@ def _lora_delta_sgmv_bucketed(x, bucket_targets, idx, scaling, block_t,
 
 
 def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
-                 kernel: str = "einsum", block_t=None, tp=None):
+                 kernel: str = "einsum", block_t=None, tp=None,
+                 gathered=()):
     """Bind one layer's bank slice and per-row adapter indices into the
     projection hook used by the attention blocks.
 
@@ -151,14 +156,15 @@ def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
     versions on CPU tensors). ``block_t=None`` means the bucketed path's
     ``kernels.tune.block_plan`` at tp = 1, else 16. ``tp``: this
     rank's ``TensorParallel`` when ``bank_layer`` is its co-sharded slice
-    (see the module docstring)."""
+    (see the module docstring); the deltas of the targets in
+    ``gathered`` are then all-gathered to full width."""
     if bank_layer is None:
         return None
     if kernel not in ("einsum", "sgmv"):
         raise ValueError(f"unknown lora kernel {kernel!r}")
 
-    if isinstance(bank_layer, (tuple, list)):
-        def cb_bucketed(name, x):
+    def delta(name, x):
+        if isinstance(bank_layer, (tuple, list)):
             targets = [bk.get(name) for bk in bank_layer]
             if any(t is None for t in targets):
                 return 0.0
@@ -166,16 +172,18 @@ def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
                 return _lora_delta_sgmv_bucketed(x, targets, idx, scaling,
                                                  block_t, tp)
             return lora_delta_bucketed(x, targets, idx, scaling, tp)
-
-        return cb_bucketed
-
-    def cb(name, x):
         t = bank_layer.get(name)
         if t is None:
             return 0.0
         if kernel == "sgmv":
             return _lora_delta_sgmv(x, t, idx, scaling, block_t, tp)
         return lora_delta(x, t["A"], t["B"], idx, scaling, tp)
+
+    def cb(name, x):
+        y = delta(name, x)
+        if name in gathered and isinstance(y, torch.Tensor):
+            y = all_gather_(y, tp)
+        return y
 
     return cb
 

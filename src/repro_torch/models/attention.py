@@ -23,12 +23,19 @@ encoder, its memory and the cross K/V are fp32, and B5 runs its fp32
 kernel on them; the decoder's hidden state stays in the weights' type.
 
 Tensor parallel (``tp``, Megatron layout): a rank holds a contiguous
-range of query heads and their kv heads, so ``wq``, ``wk``, ``wv`` are
-column slices and ``wo`` a row slice. The head counts are read from the
-weights, so the same code runs a full module or a rank's slice. ``o @
-wo`` is then a partial sum over the rank's heads; the rank adds its
-column slice of the ``o`` LoRA delta into it and one ``all_reduce_``
-sums both.
+range of query heads and the kv heads they read, so ``wq``, ``wk``,
+``wv`` are column slices and ``wo`` a row slice. Where tp does not
+divide the kv heads, each rank holds ``local_kv_heads`` of them, the
+JAX ``_regroup_plan``'s duplicates: the rank's query heads then still
+group evenly over its kv heads, and the JAX plan's zero-padded queries
+are not needed (n_heads divisible by tp makes every group whole). The
+head counts are read from the weights, so the same code runs a full
+module or a rank's slice, GQA, MLA and cross-attention alike. ``o @ wo``
+is then a partial sum over the rank's heads; the rank adds its column
+slice of the ``o`` LoRA delta into it and one ``all_reduce_`` sums both.
+MLA's ``w_dkv``, ``ln_kv`` and latent cache are whole on every rank; its
+``k`` adapter's delta comes back from the LoRA hook at full width
+(``lora.batched``).
 """
 from __future__ import annotations
 
@@ -39,12 +46,30 @@ from torch import nn
 
 from repro_torch.kernels.flash import flash_mha
 
-from .common import (NEG_INF, all_reduce_, apply_rope, attend_cache,
-                     dense_init, flash_attention, mm, rmsnorm, tp_size)
+from .common import (NEG_INF, apply_rope, attend_cache, dense_init,
+                     flash_attention, mm, rmsnorm, row_parallel_out)
 
 
 def _zero_lora(name, x):
     return 0.0
+
+
+def kv_regroup(H: int, Kv: int, n: int) -> int:
+    """The JAX ``_regroup_plan``'s ``rep``: the fewest duplicates of each
+    kv head for which the Kv * rep "virtual" kv heads divide evenly over
+    n ranks (1 when n divides Kv). With n | H, rep divides G = H / Kv, so
+    every virtual head keeps G / rep whole query heads."""
+    rep = 1
+    while (Kv * rep) % n:
+        rep += 1
+    return rep
+
+
+def local_kv_heads(cfg, n: int) -> int:
+    """The kv heads one of n ranks holds: Kv / n, or after the regroup
+    Kv * rep / n (``kv_regroup``)."""
+    Kv = cfg.n_kv_heads
+    return Kv * kv_regroup(cfg.n_heads, Kv, n) // n
 
 
 def _projections(module, cfg, gen, dtype):
@@ -93,18 +118,11 @@ def _qkv(cfg, p: GQAAttention, x, positions, lora, rope: bool = True):
     return q, k, v
 
 
-def _out_proj(p: GQAAttention, o, lora, tp):
+def _out_proj(p, o, lora, tp):
     """o @ wo plus the ``o`` LoRA delta. At tp > 1, o holds this rank's
     heads and the delta this rank's columns of d_model: the delta goes
     into its columns of the partial sum, and one all-reduce sums both."""
-    out = mm(o, p.wo)
-    delta = lora("o", o)
-    if tp_size(tp) == 1:
-        return out + delta
-    if isinstance(delta, torch.Tensor):
-        w = delta.shape[-1]
-        out[..., tp.rank * w:(tp.rank + 1) * w] += delta
-    return all_reduce_(out, tp)
+    return row_parallel_out(mm(o, p.wo), lora("o", o), tp)
 
 
 def gqa_full(cfg, p: GQAAttention, x, positions=None, *, causal=True,
@@ -183,8 +201,8 @@ def gqa_decode(cfg, p: GQAAttention, x, k_cache, v_cache, pos, *, window=0,
 class MLAAttention(nn.Module):
     """wq: (d, H*(nope+rope)); w_dkv: (d, kv_lora_rank+rope); ln_kv:
     (kv_lora_rank,); w_uk: (kv_lora_rank, H*nope); w_uv: (kv_lora_rank,
-    H*v_head_dim); wo: (H*v_head_dim, d). Not tensor-parallel
-    (``serving.sharding`` refuses MLA at tp > 1)."""
+    H*v_head_dim); wo: (H*v_head_dim, d). At tp > 1 ``wq``, ``w_uk``,
+    ``w_uv`` hold the rank's heads' columns and ``wo`` their rows."""
 
     def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
         super().__init__()
@@ -210,7 +228,7 @@ def _mla_q(cfg, p: MLAAttention, x, positions, lora):
     m = cfg.mla
     B, S, _ = x.shape
     q = (x @ p.wq + lora("q", x)).reshape(
-        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+        B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     qn, qr = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     return torch.cat([qn, apply_rope(qr, positions, cfg.rope_theta)], dim=-1)
 
@@ -218,7 +236,8 @@ def _mla_q(cfg, p: MLAAttention, x, positions, lora):
 def _mla_ckv(cfg, p: MLAAttention, x, positions, lora):
     """(c (B,S,kv_lora_rank) normed, kr (B,S,1,rope) rotated). Only the
     ``k`` adapter reaches MLA, on ``w_dkv``: the reference never applies
-    ``v`` here, and neither does the port (ROADMAP C9)."""
+    ``v`` here, and neither does the port (ROADMAP C9). Replicated at tp
+    > 1: the hook gives the ``k`` delta at full width."""
     m = cfg.mla
     B, S, _ = x.shape
     dkv = x @ p.w_dkv + lora("k", x)
@@ -237,13 +256,13 @@ def _mla_expand(cfg, p: MLAAttention, c):
     B, S, _ = c.shape
     dt = torch.promote_types(c.dtype, p.w_uk.dtype)
     c = c.to(dt)
-    kn = (c @ p.w_uk.to(dt)).reshape(B, S, cfg.n_heads, m.qk_nope_head_dim)
-    v = (c @ p.w_uv.to(dt)).reshape(B, S, cfg.n_heads, m.v_head_dim)
+    kn = (c @ p.w_uk.to(dt)).reshape(B, S, -1, m.qk_nope_head_dim)
+    v = (c @ p.w_uv.to(dt)).reshape(B, S, -1, m.v_head_dim)
     return kn, v
 
 
 def mla_full(cfg, p: MLAAttention, x, positions=None, *, causal=True,
-             window=0, lora: Optional[Callable] = None):
+             window=0, lora: Optional[Callable] = None, tp=None):
     """Full-sequence MLA; ``positions=None`` means ``arange(S)``. The score
     is q_nope.k_nope + q_rope.k_rope, the shared rope key scored as
     ``flash_attention``'s ``extra_qk``. Returns (out, (c, kr)) for cache
@@ -261,12 +280,12 @@ def mla_full(cfg, p: MLAAttention, x, positions=None, *, causal=True,
     o = flash_attention(qn, kn, v, causal=causal, q_positions=positions,
                         k_positions=positions, window=window, scale=scale,
                         extra_qk=(qr, kr[:, :, 0, :]))
-    return _out_proj(p, o.reshape(B, S, -1), lora, None), (c, kr[:, :, 0, :])
+    return _out_proj(p, o.reshape(B, S, -1), lora, tp), (c, kr[:, :, 0, :])
 
 
 def mla_decode(cfg, p: MLAAttention, x, c_cache, kr_cache, pos, *,
                window=0, lora: Optional[Callable] = None,
-               absorbed: bool = False):
+               absorbed: bool = False, tp=None):
     """Single-token MLA decode. c_cache: (B,S,kv_lora_rank); kr_cache:
     (B,S,rope), both written in place as ``gqa_decode`` writes its caches.
 
@@ -278,8 +297,8 @@ def mla_decode(cfg, p: MLAAttention, x, c_cache, kr_cache, pos, *,
     m = cfg.mla
     B = x.shape[0]
     S = c_cache.shape[1]
-    H = cfg.n_heads
     q = _mla_q(cfg, p, x, pos[:, None], lora)                # (B,1,H,qd)
+    H = q.shape[2]                                           # this rank's
     c_t, kr_t = _mla_ckv(cfg, p, x, pos[:, None], lora)
     write_idx = pos % S if window else pos
     _write_token(c_cache, write_idx, c_t[:, 0])
@@ -306,7 +325,7 @@ def mla_decode(cfg, p: MLAAttention, x, c_cache, kr_cache, pos, *,
         k = torch.cat([kn.to(dt), kr_cache[:, :, None, :].to(dt).expand(
             B, S, H, m.qk_rope_head_dim)], dim=-1)
         o = attend_cache(q, k, v, valid, scale=scale).reshape(B, 1, -1)
-    return _out_proj(p, o, lora, None), (c_cache, kr_cache)
+    return _out_proj(p, o, lora, tp), (c_cache, kr_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +335,8 @@ def mla_decode(cfg, p: MLAAttention, x, c_cache, kr_cache, pos, *,
 
 class CrossAttention(nn.Module):
     """wq: (d, H*hd); wk, wv: (d, Kv*hd); wo: (H*hd, d): no bias, no
-    RoPE (the JAX ``init_cross_attn``)."""
+    RoPE (the JAX ``init_cross_attn``); split by head at tp > 1 as
+    ``GQAAttention`` is."""
 
     def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
         super().__init__()
@@ -334,13 +354,14 @@ def cross_kv(cfg, p: CrossAttention, memory):
             mm(memory, p.wv).reshape(B, M, Kv, hd))
 
 
-def cross_attend(cfg, p: CrossAttention, x, k, v, lora=None):
+def cross_attend(cfg, p: CrossAttention, x, k, v, lora=None, tp=None):
     """x: (B, S, d) queries; k, v: (B, M, Kv, hd) from ``cross_kv`` (or
     the cache). Non-causal, no RoPE. At S = 1 ``attend_cache`` with every
     key valid; at S > 1 MHA runs on B5 non-causal (Sq = S, Sk = M), GQA
     on ``flash_attention(causal=False)`` over ``arange(S)`` and
     ``arange(M)``. The output is in the type of x's product with the
-    weights."""
+    weights. At tp > 1 k, v hold the rank's kv heads and the output
+    projection ends in one all-reduce."""
     lora = lora or _zero_lora
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -355,5 +376,4 @@ def cross_attend(cfg, p: CrossAttention, x, k, v, lora=None):
         o = flash_attention(q, k, v, causal=False,
                             q_positions=torch.arange(S, device=x.device),
                             k_positions=torch.arange(M, device=x.device))
-    o = o.reshape(B, S, -1)
-    return mm(o, p.wo) + lora("o", o)
+    return _out_proj(p, o.reshape(B, S, -1), lora, tp)

@@ -12,8 +12,12 @@ in x.dtype (``repro_torch.lora.batched.make_lora_cb``).
 Tensor parallelism: where the JAX package selects its sharded mode
 through an ambient ``AxisEnv``, the port passes a ``TensorParallel``
 (``repro_torch.launch.mesh``) down explicitly as ``tp``; ``None`` or a
-size-1 group is the single-device model. ``all_reduce_`` is the one
-collective the layers need.
+size-1 group is the single-device model. The layers meet in three
+collectives, each the identity at tp = 1: ``all_reduce_`` (a row-parallel
+product's partial sums), ``all_gather_`` (column slices of a replicated
+output, or sequence chunks) and ``all_to_all_`` (the expert-parallel
+MoE's dispatch), and normalise a width split across the ranks with
+``rmsnorm_sharded``.
 """
 from __future__ import annotations
 
@@ -38,6 +42,58 @@ def all_reduce_(x, tp):
         x = x.contiguous()
         dist.all_reduce(x, group=tp.group)
     return x
+
+
+def row_parallel_out(y, delta, tp):
+    """A row-parallel projection's output: ``y`` is this rank's partial
+    sum over its slice of the input (full d_out), ``delta`` the rank's
+    column slice of an adapter's delta on it (or 0.0). The delta goes
+    into its columns of the partial sum and one all-reduce sums both;
+    ``y + delta`` at tp = 1."""
+    if tp_size(tp) == 1:
+        return y + delta
+    if isinstance(delta, torch.Tensor):
+        w = delta.shape[-1]
+        y[..., tp.rank * w:(tp.rank + 1) * w] += delta
+    return all_reduce_(y, tp)
+
+
+def all_gather_(x, tp, dim: int = -1):
+    """The ranks' ``x`` put side by side along ``dim`` in rank order (every
+    rank's of the same shape); ``x`` itself at tp = 1."""
+    if tp_size(tp) == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x, group=tp.group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_to_all_(x, tp):
+    """Split ``x`` along dim 0 into tp equal chunks, send chunk j to rank
+    j, and return the chunks received, in the order of the ranks that
+    sent them, along dim 0 (``all_to_all_single``); ``x`` itself at tp =
+    1. gloo takes CUDA tensors for it as it does for ``all_reduce`` (it
+    stages them through the host itself), so no path copies here."""
+    if tp_size(tp) == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=tp.group)
+    return out
+
+
+def rmsnorm_sharded(x, scale, eps: float, tp):
+    """``rmsnorm`` over a width split across the ranks: x holds this
+    rank's slice of the normalised width and ``scale`` its slice of the
+    weights. The fp32 sum of squares is all-reduced, so every rank divides
+    by the root mean square of the whole width; ``rmsnorm`` at tp = 1."""
+    if tp_size(tp) == 1:
+        return rmsnorm(x, scale, eps)
+    x32 = x.float()
+    ss = all_reduce_((x32 * x32).sum(dim=-1, keepdim=True), tp)
+    out = x32 * torch.rsqrt(ss / (x.shape[-1] * tp.size) + eps)
+    return (out * scale.float()).to(x.dtype)
 
 
 def mm(x, w):

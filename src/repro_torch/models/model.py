@@ -53,12 +53,16 @@ callback serves every application of it. RWKV-6 takes its adapters on
 the receptance (the ``q`` target), key, value and output projections.
 
 ``tp`` (a ``launch.mesh.TensorParallel``, optional) runs a rank of a
-tensor-parallel model: ``params`` is the rank's slice
-(``serving.sharding.EngineSharding.shard_params``), the cache holds its
-kv heads, and the LoRA bank its co-sharded slice. Embedding, norms and
-``lm_head`` are replicated, and the hidden state after every all-reduce
-is the same on every rank, so every rank computes the same logits. Only
-the dense family is sharded.
+tensor-parallel model, of every family: ``params`` is the rank's slice
+(``serving.sharding.EngineSharding.shard_params``, or ``init_params(tp=
+...)`` directly), the cache holds its heads (kv heads, regrouped where
+tp does not divide them; cross K/V heads; Mamba2 and WKV heads; MLA's
+latent and the RWKV-6 token shifts whole), and the LoRA bank its
+co-sharded slice. Embedding, norms and ``lm_head`` are replicated, and
+the hidden state after every all-reduce (or all-gather) is the same on
+every rank, so every rank computes the same logits. The MoE layers take
+the expert-parallel path at prefill where it applies
+(``ffn.ep_applicable``) and the drop-free path elsewhere.
 """
 from __future__ import annotations
 
@@ -72,7 +76,7 @@ from repro_torch.lora.batched import make_lora_cb
 
 from .attention import (CrossAttention, GQAAttention, MLAAttention,
                         cross_attend, cross_kv, gqa_decode, gqa_full,
-                        mla_decode, mla_full)
+                        local_kv_heads, mla_decode, mla_full)
 from .common import dense_init, rmsnorm, tp_size
 from .ffn import MoE, SwiGLU, moe_ffn
 from .ssm import (Mamba2, RWKV6, mamba2_full, mamba2_state, mamba2_step,
@@ -173,10 +177,18 @@ class EncDecBlock(nn.Module):
         self.ffn = SwiGLU(d, cfg.d_ff, gen, dtype)
 
 
-class BaseLM(nn.Module):
-    """embed: (V, d); ln_f: (d,); lm_head: (d, V) unless tied."""
+def _whole(block: nn.Module) -> nn.Module:
+    return block
 
-    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+
+class BaseLM(nn.Module):
+    """embed: (V, d); ln_f: (d,); lm_head: (d, V) unless tied. Each
+    family's blocks pass through ``shard`` as they are drawn
+    (``init_params(tp=...)``: the rank's slice, one full block at a time
+    in memory)."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32,
+                 shard=_whole):
         super().__init__()
         _check_family(cfg)
         d, V = cfg.d_model, cfg.vocab_size
@@ -194,9 +206,10 @@ class BaseLM(nn.Module):
 class DenseLM(BaseLM):
     """The dense and MoE families: ``blocks`` of ``DenseBlock``."""
 
-    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32,
+                 shard=_whole):
         super().__init__(cfg, gen, dtype)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, gen, dtype)
+        self.blocks = nn.ModuleList(shard(DenseBlock(cfg, gen, dtype))
                                     for _ in range(cfg.n_layers))
 
 
@@ -204,19 +217,21 @@ class HybridLM(BaseLM):
     """zamba2: ``mamba_blocks`` (one ``Mamba2`` a layer) and one
     ``shared_attn`` ``DenseBlock``."""
 
-    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32,
+                 shard=_whole):
         super().__init__(cfg, gen, dtype)
-        self.mamba_blocks = nn.ModuleList(Mamba2(cfg, gen, dtype)
+        self.mamba_blocks = nn.ModuleList(shard(Mamba2(cfg, gen, dtype))
                                           for _ in range(cfg.n_layers))
-        self.shared_attn = DenseBlock(cfg, gen, dtype)
+        self.shared_attn = shard(DenseBlock(cfg, gen, dtype))
 
 
 class RWKVLM(BaseLM):
     """RWKV-6: ``blocks`` of ``RWKV6``."""
 
-    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32,
+                 shard=_whole):
         super().__init__(cfg, gen, dtype)
-        self.blocks = nn.ModuleList(RWKV6(cfg, gen, dtype)
+        self.blocks = nn.ModuleList(shard(RWKV6(cfg, gen, dtype))
                                     for _ in range(cfg.n_layers))
 
 
@@ -225,13 +240,14 @@ class VisionLM(BaseLM):
     them) and ``cross_blocks`` (``CrossBlock``, n_cross = n_layers //
     cross_attn_every)."""
 
-    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32,
+                 shard=_whole):
         super().__init__(cfg, gen, dtype)
         self.self_blocks = nn.ModuleList(
-            DenseBlock(cfg, gen, dtype)
+            shard(DenseBlock(cfg, gen, dtype))
             for _ in range(n_attn_applications(cfg)))
         self.cross_blocks = nn.ModuleList(
-            CrossBlock(cfg, gen, dtype)
+            shard(CrossBlock(cfg, gen, dtype))
             for _ in range(n_cross_applications(cfg)))
 
 
@@ -240,12 +256,13 @@ class EncDecLM(BaseLM):
     ``cfg.encoder.n_layers``), ``enc_ln_f`` and ``dec_blocks``
     (``EncDecBlock``, ``cfg.n_layers``)."""
 
-    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32):
+    def __init__(self, cfg, gen: torch.Generator, dtype=torch.float32,
+                 shard=_whole):
         super().__init__(cfg, gen, dtype)
-        self.enc_blocks = nn.ModuleList(DenseBlock(cfg, gen, dtype)
+        self.enc_blocks = nn.ModuleList(shard(DenseBlock(cfg, gen, dtype))
                                         for _ in range(cfg.encoder.n_layers))
         self.enc_ln_f = _const(1.0, cfg.d_model, gen, dtype)
-        self.dec_blocks = nn.ModuleList(EncDecBlock(cfg, gen, dtype)
+        self.dec_blocks = nn.ModuleList(shard(EncDecBlock(cfg, gen, dtype))
                                         for _ in range(cfg.n_layers))
 
 
@@ -254,15 +271,24 @@ _LM_CLASS = {"dense": DenseLM, "moe": DenseLM, "hybrid": HybridLM,
 
 
 def init_params(cfg, seed: int = 0, *, dtype=torch.float32,
-                device="cuda") -> BaseLM:
+                device="cuda", tp=None) -> BaseLM:
     """Random base weights from one ``torch.Generator`` on ``device``
     (not the JAX package's numbers: tests carry weights across with
     ``repro_torch.bridge``): a ``DenseLM``, ``HybridLM``, ``RWKVLM``,
-    ``VisionLM`` or ``EncDecLM`` by ``cfg.family``."""
+    ``VisionLM`` or ``EncDecLM`` by ``cfg.family``. With ``tp`` (size >
+    1), this rank's slice of the same weights, each block sliced as soon
+    as it is drawn, so the full model is never held; the engine takes
+    it as it is (``tp_shard`` names the slice)."""
     _check_family(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    return _LM_CLASS[cfg.family](cfg, gen, dtype)
+    if tp_size(tp) == 1:
+        return _LM_CLASS[cfg.family](cfg, gen, dtype)
+    from repro_torch.serving.sharding import EngineSharding
+    lm = _LM_CLASS[cfg.family](cfg, gen, dtype,
+                               EngineSharding(tp, cfg).shard_module)
+    lm.tp_shard = (tp.rank, tp.size)
+    return lm
 
 
 def lm_head(cfg, params: BaseLM):
@@ -278,10 +304,17 @@ def bank_layer(bank, i: int):
     return {t: {"A": w["A"][i], "B": w["B"][i]} for t, w in bank.items()}
 
 
+def _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp):
+    """The LoRA hook of bank layer ``i``; MLA's ``k`` delta gathered to
+    full width at tp > 1 (it adds to the replicated latent)."""
+    return make_lora_cb(bank_layer(bank, i), lora_idx, kernel=lora_kernel,
+                        tp=tp, gathered=("k",) if cfg.mla else ())
+
+
 def _ffn(cfg, bp: DenseBlock, x, tp):
     xn = rmsnorm(x, bp.ln2, cfg.rmsnorm_eps)
     if cfg.moe is not None:
-        return moe_ffn(cfg, bp.ffn, xn)[0]
+        return moe_ffn(cfg, bp.ffn, xn, tp=tp)[0]
     return bp.ffn(xn, tp)
 
 
@@ -290,7 +323,7 @@ def _dense_block_full(cfg, bp: DenseBlock, x, window, lora, tp):
     # take kernel B5
     xn = rmsnorm(x, bp.ln1, cfg.rmsnorm_eps)
     if cfg.mla is not None:
-        h, kv = mla_full(cfg, bp.attn, xn, window=window, lora=lora)
+        h, kv = mla_full(cfg, bp.attn, xn, window=window, lora=lora, tp=tp)
     else:
         h, kv = gqa_full(cfg, bp.attn, xn, window=window, lora=lora, tp=tp)
     x = x + h
@@ -302,7 +335,7 @@ def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
     xn = rmsnorm(x, bp.ln1, cfg.rmsnorm_eps)
     if cfg.mla is not None:
         h, _ = mla_decode(cfg, bp.attn, xn, kc, vc, pos, window=window,
-                          lora=lora, absorbed=mla_absorbed)
+                          lora=lora, absorbed=mla_absorbed, tp=tp)
     else:
         h, _ = gqa_decode(cfg, bp.attn, xn, kc, vc, pos, window=window,
                           lora=lora, tp=tp)
@@ -310,28 +343,29 @@ def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
     return x + _ffn(cfg, bp, x, tp)
 
 
-def _cross_block(cfg, bp: CrossBlock, x, kc, vc):
+def _cross_block(cfg, bp: CrossBlock, x, kc, vc, tp):
     """The VLM's gated block: x + tanh(gate_attn) * cross-attention, then
     + tanh(gate_ffn) * SwiGLU."""
     h = cross_attend(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps), kc,
-                     vc)
+                     vc, tp=tp)
     x = x + torch.tanh(bp.gate_attn) * h
-    return x + torch.tanh(bp.gate_ffn) * _ffn(cfg, bp, x, None)
+    return x + torch.tanh(bp.gate_ffn) * _ffn(cfg, bp, x, tp)
 
 
-def _rwkv_block(cfg, bp: RWKV6, x, st, lora):
+def _rwkv_block(cfg, bp: RWKV6, x, st, lora, tp):
     h, st_tm = rwkv6_time_mix(cfg, bp, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                              st, lora)
+                              st, lora, tp)
     x = x + h
     h2, st_cm = rwkv6_channel_mix(cfg, bp,
-                                  rmsnorm(x, bp.ln2, cfg.rmsnorm_eps), st)
+                                  rmsnorm(x, bp.ln2, cfg.rmsnorm_eps), st,
+                                  tp)
     return x + h2, {**st_tm, **st_cm}
 
 
-def _mamba_layer(cfg, bp: Mamba2, x, state, step: bool):
+def _mamba_layer(cfg, bp: Mamba2, x, state, step: bool, tp):
     """x + the Mamba2 block on rmsnorm(x); returns (x, new state)."""
     fn = mamba2_step if step else mamba2_full
-    out, st = fn(cfg, bp, rmsnorm(x, bp.ln, cfg.rmsnorm_eps), state)
+    out, st = fn(cfg, bp, rmsnorm(x, bp.ln, cfg.rmsnorm_eps), state, tp)
     return x + out, st
 
 
@@ -343,13 +377,17 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
                device="cuda", tp=None, enc_len: Optional[int] = None):
     """Zeroed cache dict. max_len should already account for any sliding
     window (callers pass min(seq, window)). At tp > 1 it holds this rank's
-    n_kv_heads / tp kv heads (the JAX package's kv-head-sharded
-    "baseline" cache layout), and no full cache is ever made. The WKV
+    heads, and no full cache is ever made: its kv heads, self- and
+    cross-attention alike (n_kv_heads / tp, the JAX package's
+    kv-head-sharded "baseline" layout, or the regroup's
+    ``local_kv_heads``), its Mamba2 and WKV heads; MLA's latent ``c``/
+    ``kr`` and the RWKV-6 token shifts are whole on every rank. The WKV
     state is fp32 whatever ``dtype``, as in the JAX package. The cross
     K/V hold ``enc_len`` positions (by default the config's frames or
     frontend tokens)."""
     _check_family(cfg)
     dev = resolve_device(device)
+    n = tp_size(tp)
     cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
     n_attn = n_attn_applications(cfg)
     lead = (n_attn, batch, max_len)
@@ -359,21 +397,22 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
         shapes = {"c": lead + (m.kv_lora_rank,),
                   "kr": lead + (m.qk_rope_head_dim,)}
     elif n_attn:
-        kv = lead + (cfg.n_kv_heads // tp_size(tp), cfg.resolved_head_dim)
+        kv = lead + (local_kv_heads(cfg, n), cfg.resolved_head_dim)
         shapes = {"k": kv, "v": kv}
     n_cross = n_cross_applications(cfg)
     if n_cross:
         M = enc_len or (cfg.encoder.n_frames if cfg.encoder
                         else cfg.n_frontend_tokens)
-        shapes["xk"] = shapes["xv"] = (n_cross, batch, M, cfg.n_kv_heads,
+        shapes["xk"] = shapes["xv"] = (n_cross, batch, M,
+                                       local_kv_heads(cfg, n),
                                        cfg.resolved_head_dim)
     if cfg.family == "hybrid":
         _, H, hd, N = mamba_dims(cfg)
-        shapes["ssm"] = (cfg.n_layers, batch, H, hd, N)
+        shapes["ssm"] = (cfg.n_layers, batch, H // n, hd, N)
     for name, shape in shapes.items():
         cache[name] = torch.zeros(shape, dtype=dtype, device=dev)
     if cfg.family == "ssm":
-        for name, t in rwkv6_state(cfg, batch, dtype, dev).items():
+        for name, t in rwkv6_state(cfg, batch, dtype, dev, tp).items():
             cache[name] = t.new_zeros((cfg.n_layers,) + t.shape)
     return cache
 
@@ -403,8 +442,7 @@ def _write_kv(cfg, cache, i, kv, window):
 def _run_dense_full(cfg, params: DenseLM, x, cache, *, window, bank,
                     lora_idx, lora_kernel, tp):
     for i, bp in enumerate(params.blocks):
-        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel, tp=tp)
+        lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
         x, kv = _dense_block_full(cfg, bp, x, window, lora, tp)
         _write_kv(cfg, cache, i, kv, window)
     return x
@@ -427,38 +465,39 @@ def _run_vlm_full(cfg, params: VisionLM, x, cache, *, window, frontend,
             x, kv = _dense_block_full(cfg, params.self_blocks[i], x, window,
                                       None, tp)
             _write_kv(cfg, cache, i, kv, window)
-        x = _cross_block(cfg, cb, x, xk, xv)
+        x = _cross_block(cfg, cb, x, xk, xv, tp)
         _write_cross(cache, p, xk, xv)
     return x
 
 
-def _run_audio_encoder(cfg, params: EncDecLM, frames):
+def _run_audio_encoder(cfg, params: EncDecLM, frames, tp=None):
     """The bidirectional encoder over frame embeddings (B, M, d): RoPE over
     the frame positions, non-causal self-attention (B5 for MHA), SwiGLU;
     the memory after ``enc_ln_f``, in the promoted type of the frames and
-    the weights."""
+    the weights. At tp > 1 a dense stack split as the decoder's is; the
+    memory is whole on every rank."""
     x = frames
     for bp in params.enc_blocks:
         h, _ = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                        causal=False)
+                        causal=False, tp=tp)
         x = x + h
-        x = x + _ffn(cfg, bp, x, None)
+        x = x + _ffn(cfg, bp, x, tp)
     return rmsnorm(x, params.enc_ln_f, cfg.rmsnorm_eps)
 
 
 def _run_audio_full(cfg, params: EncDecLM, x, cache, *, window, frontend,
                     bank, lora_idx, lora_kernel, tp):
-    memory = _run_audio_encoder(cfg, params, frontend)
+    memory = _run_audio_encoder(cfg, params, frontend, tp)
     for i, bp in enumerate(params.dec_blocks):
         xk, xv = cross_kv(cfg, bp.cross, memory)
         # the decoder's self-attention is the only LoRA site (ROADMAP C3)
-        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel, tp=tp)
+        lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
         h, kv = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
                          window=window, lora=lora, tp=tp)
         x = x + h
         x = x + cross_attend(cfg, bp.cross,
-                             rmsnorm(x, bp.lnc, cfg.rmsnorm_eps), xk, xv)
+                             rmsnorm(x, bp.lnc, cfg.rmsnorm_eps), xk, xv,
+                             tp=tp)
         x = x + _ffn(cfg, bp, x, tp)
         _write_kv(cfg, cache, i, kv, window)
         _write_cross(cache, i, xk, xv)
@@ -468,8 +507,7 @@ def _run_audio_full(cfg, params: EncDecLM, x, cache, *, window, frontend,
 def _run_hybrid_full(cfg, params: HybridLM, x, cache, *, window, bank,
                      lora_idx, lora_kernel, tp):
     # one bank layer: the shared block's adapters at every application
-    lora = make_lora_cb(bank_layer(bank, 0), lora_idx, kernel=lora_kernel,
-                        tp=tp)
+    lora = _layer_lora(cfg, bank, 0, lora_idx, lora_kernel, tp)
     for i, (start, size) in enumerate(_hybrid_segments(cfg)):
         x, kv = _dense_block_full(cfg, params.shared_attn, x, window, lora,
                                   tp)
@@ -477,17 +515,17 @@ def _run_hybrid_full(cfg, params: HybridLM, x, cache, *, window, bank,
         for j in range(start, start + size):
             x, cache["ssm"][j] = _mamba_layer(
                 cfg, params.mamba_blocks[j], x,
-                mamba2_state(cfg, x.shape[0], device=x.device), step=False)
+                mamba2_state(cfg, x.shape[0], device=x.device, tp=tp),
+                False, tp)
     return x
 
 
 def _run_rwkv_full(cfg, params: RWKVLM, x, cache, *, window, bank,
                    lora_idx, lora_kernel, tp):
-    st0 = rwkv6_state(cfg, x.shape[0], x.dtype, x.device)
+    st0 = rwkv6_state(cfg, x.shape[0], x.dtype, x.device, tp)
     for i, bp in enumerate(params.blocks):
-        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel, tp=tp)
-        x, st = _rwkv_block(cfg, bp, x, st0, lora)
+        lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
+        x, st = _rwkv_block(cfg, bp, x, st0, lora, tp)
         for name, t in st.items():
             cache[name][i] = t
     return x
@@ -533,8 +571,7 @@ def _decode_dense(cfg, params: DenseLM, cache, x, pos, *, window, bank,
                   lora_idx, lora_kernel, tp, mla_absorbed):
     ka, kb = _cache_keys(cfg)
     for i, bp in enumerate(params.blocks):
-        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel, tp=tp)
+        lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
         x = _dense_block_decode(cfg, bp, x, cache[ka][i], cache[kb][i],
                                 pos, window, lora, tp, mla_absorbed)
     return x
@@ -542,23 +579,21 @@ def _decode_dense(cfg, params: DenseLM, cache, x, pos, *, window, bank,
 
 def _decode_hybrid(cfg, params: HybridLM, cache, x, pos, *, window, bank,
                    lora_idx, lora_kernel, tp, mla_absorbed):
-    lora = make_lora_cb(bank_layer(bank, 0), lora_idx, kernel=lora_kernel,
-                        tp=tp)
+    lora = _layer_lora(cfg, bank, 0, lora_idx, lora_kernel, tp)
     for i, (start, size) in enumerate(_hybrid_segments(cfg)):
         x = _dense_block_decode(cfg, params.shared_attn, x, cache["k"][i],
                                 cache["v"][i], pos, window, lora, tp)
         for j in range(start, start + size):
             # the state comes back in x's type and is stored in the cache's
             x, cache["ssm"][j] = _mamba_layer(
-                cfg, params.mamba_blocks[j], x, cache["ssm"][j], step=True)
+                cfg, params.mamba_blocks[j], x, cache["ssm"][j], True, tp)
     return x
 
 
 def _decode_rwkv(cfg, params: RWKVLM, cache, x, pos, *, window, bank,
                  lora_idx, lora_kernel, tp, mla_absorbed):
     for i, bp in enumerate(params.blocks):
-        lora = make_lora_cb(bank_layer(bank, i), lora_idx,
-                            kernel=lora_kernel, tp=tp)
+        lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
         # The token shifts hold activations of x's type; a cache of
         # another type gives them back in it (exactly: they were x's
         # type when stored). The JAX decode takes them in the cache's
@@ -567,7 +602,7 @@ def _decode_rwkv(cfg, params: RWKVLM, cache, x, pos, *, window, bank,
         st = {"wkv": cache["wkv"][i],
               "x_tm": cache["x_tm"][i].to(x.dtype),
               "x_cm": cache["x_cm"][i].to(x.dtype)}
-        x, st = _rwkv_block(cfg, bp, x, st, lora)
+        x, st = _rwkv_block(cfg, bp, x, st, lora, tp)
         for name, t in st.items():
             cache[name][i] = t
     return x
@@ -581,7 +616,7 @@ def _decode_vlm(cfg, params: VisionLM, cache, x, pos, *, window, bank,
             x = _dense_block_decode(cfg, params.self_blocks[i], x,
                                     cache["k"][i], cache["v"][i], pos,
                                     window, None, tp)
-        x = _cross_block(cfg, cb, x, cache["xk"][p], cache["xv"][p])
+        x = _cross_block(cfg, cb, x, cache["xk"][p], cache["xv"][p], tp)
     return x
 
 
@@ -595,7 +630,7 @@ def _decode_audio(cfg, params: EncDecLM, cache, x, pos, *, window, bank,
         x = x + h
         x = x + cross_attend(cfg, bp.cross,
                              rmsnorm(x, bp.lnc, cfg.rmsnorm_eps),
-                             cache["xk"][i], cache["xv"][i])
+                             cache["xk"][i], cache["xv"][i], tp=tp)
         x = x + _ffn(cfg, bp, x, tp)
     return x
 

@@ -13,6 +13,20 @@ Types, as in the reference: the Mamba2 scan runs in fp32 and its state
 comes back in the activation type (rounded once a sequence, and at every
 decode step); the WKV state stays fp32; the token-shift states hold
 activations. Weights are (d_in, d_out), used as ``x @ w``.
+
+Tensor parallel (``tp``): both split by head. A Mamba2 rank holds its
+heads' x and z columns of ``w_xz``, its columns of ``w_dt`` and its
+entries of ``dt_bias``, ``A_log``, ``D`` and ``ln_y``; ``w_bc`` (shared
+by every head) is whole. Its scan runs over its heads only, the gated
+norm over the split width is ``rmsnorm_sharded``, and ``w_out`` is
+row-parallel, one all-reduce. An RWKV-6 rank holds its heads' columns of
+``w_r``, ``w_k``, ``w_v``, ``w_g`` and of the decay (``w0``, ``wa2``),
+its rows of ``u``, its channels of ``ln_x`` and its rows of ``w_o``; the
+WKV state holds its heads, the token shifts stay full width. The channel
+mix splits d_ff (``wk_cm`` by column, ``wv_cm`` by row). The head counts
+are read from the weights. The LoRA targets on the receptance, key and
+value come back as the rank's columns, and ``o``'s goes into the
+rank's columns of the partial sum (``common.row_parallel_out``).
 """
 from __future__ import annotations
 
@@ -20,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, rmsnorm
+from .common import (all_reduce_, dense_init, rmsnorm_sharded,
+                     row_parallel_out, tp_size)
 
 # ---------------------------------------------------------------------------
 # Mamba2 (SSD)
@@ -63,15 +78,19 @@ def init_mamba2(cfg, gen: torch.Generator, dtype=torch.float32) -> Mamba2:
     return Mamba2(cfg, gen, dtype)
 
 
-def mamba2_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
+def mamba2_state(cfg, batch: int, dtype=torch.float32, device="cpu",
+                 tp=None):
+    """The zero state of one layer: (B, H, hd, N), the rank's H / tp heads
+    at tp > 1."""
     _, H, hd, N = mamba_dims(cfg)
-    return torch.zeros((batch, H, hd, N), dtype=dtype, device=device)
+    return torch.zeros((batch, H // tp_size(tp), hd, N), dtype=dtype,
+                       device=device)
 
 
 def _mamba_proj(cfg, p: Mamba2, u):
     """u: (B,S,d) -> x (B,S,H,hd), z (B,S,inner), b, c (B,S,N), a (B,S,H),
-    dt (B,S,H)."""
-    _, H, hd, _ = mamba_dims(cfg)
+    dt (B,S,H); H and inner this rank's."""
+    H, hd = p.w_dt.shape[1], cfg.ssm.head_dim
     x, z = (u @ p.w_xz).chunk(2, dim=-1)
     b, c = (u @ p.w_bc).chunk(2, dim=-1)
     dt = F.softplus(u @ p.w_dt + p.dt_bias)                  # (B,S,H)
@@ -79,15 +98,16 @@ def _mamba_proj(cfg, p: Mamba2, u):
     return x.reshape(*x.shape[:-1], H, hd), z, b, c, a, dt
 
 
-def _mamba_out(cfg, p: Mamba2, y, z, x):
+def _mamba_out(cfg, p: Mamba2, y, z, x, tp):
     """y: (B,S,H,hd) ssm output; skip, gate and project."""
     B, S = y.shape[:2]
     y = y + p.D[:, None] * x
-    y = rmsnorm(y.reshape(B, S, -1) * F.silu(z), p.ln_y, cfg.rmsnorm_eps)
-    return y @ p.w_out
+    y = rmsnorm_sharded(y.reshape(B, S, -1) * F.silu(z), p.ln_y,
+                        cfg.rmsnorm_eps, tp)
+    return all_reduce_(y @ p.w_out, tp)
 
 
-def mamba2_full(cfg, p: Mamba2, u, state):
+def mamba2_full(cfg, p: Mamba2, u, state, tp=None):
     """u: (B,S,d); state: (B,H,hd,N). Returns (out, new_state), the state
     in u's type. The scan runs in fp32: state, inputs and products."""
     x, z, b, c, a, dt = _mamba_proj(cfg, p, u)
@@ -100,10 +120,10 @@ def mamba2_full(cfg, p: Mamba2, u, state):
             dtx[:, t, :, :, None] * b[:, t, None, None, :]
         ys.append(torch.einsum("bhdn,bn->bhd", s, c[:, t]))
     y = torch.stack(ys, dim=1).to(u.dtype)                   # (B,S,H,hd)
-    return _mamba_out(cfg, p, y, z, x), s.to(u.dtype)
+    return _mamba_out(cfg, p, y, z, x, tp), s.to(u.dtype)
 
 
-def mamba2_step(cfg, p: Mamba2, u, state):
+def mamba2_step(cfg, p: Mamba2, u, state, tp=None):
     """u: (B,1,d); state: (B,H,hd,N), any type. As the reference: the
     input's outer product is formed in u's type, the update and the
     readout in fp32, and the new state comes back in u's type."""
@@ -112,7 +132,7 @@ def mamba2_step(cfg, p: Mamba2, u, state):
     s32 = state.float() * a[:, 0, :, None, None] + \
         (dtx[..., None] * b[:, 0, None, None, :]).float()
     y = torch.einsum("bhdn,bn->bhd", s32, c[:, 0].float())[:, None]
-    return _mamba_out(cfg, p, y.to(u.dtype), z, x), s32.to(u.dtype)
+    return _mamba_out(cfg, p, y.to(u.dtype), z, x, tp), s32.to(u.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +183,15 @@ def init_rwkv6(cfg, gen: torch.Generator, dtype=torch.float32) -> RWKV6:
     return RWKV6(cfg, gen, dtype)
 
 
-def rwkv6_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
+def rwkv6_state(cfg, batch: int, dtype=torch.float32, device="cpu",
+                tp=None):
+    """The zero state of one layer; the WKV state holds the rank's H / tp
+    heads at tp > 1, the token shifts the full width."""
     d = cfg.d_model
     H, hd = rwkv_dims(cfg)
     return {
-        "wkv": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+        "wkv": torch.zeros((batch, H // tp_size(tp), hd, hd),
+                           dtype=torch.float32,
                            device=device),              # (k-dim, v-dim)
         "x_tm": torch.zeros((batch, d), dtype=dtype, device=device),
         "x_cm": torch.zeros((batch, d), dtype=dtype, device=device),
@@ -211,23 +235,24 @@ def _rwkv_wkv(cfg, r, k, v, w, u, s0):
     return torch.stack(outs, dim=1), s
 
 
-def rwkv6_time_mix(cfg, p: RWKV6, x, state, lora=None):
+def rwkv6_time_mix(cfg, p: RWKV6, x, state, lora=None, tp=None):
     """x: (B,S,d) (post-ln); state holds ``wkv`` (fp32) and ``x_tm`` (x's
     type). Returns (out, {"wkv", "x_tm"})."""
-    B, S, d = x.shape
-    H, hd = rwkv_dims(cfg)
+    B, S, _ = x.shape
+    H, hd = p.u.shape                                    # this rank's heads
     xx = _token_shift(x, state["x_tm"])
     r, k, v, g, w = _rwkv_mix(p, x, xx, lora)
     out, s = _rwkv_wkv(cfg, *(t.reshape(B, S, H, hd) for t in (r, k, v, w)),
                        p.u.float(), state["wkv"])
-    out = out.reshape(B, S, d).to(x.dtype)
-    out = rmsnorm(out, p.ln_x, cfg.rmsnorm_eps) * F.silu(g)
-    out = out @ p.w_o + (lora("o", out) if lora else 0.0)
+    out = out.reshape(B, S, H * hd).to(x.dtype)
+    out = rmsnorm_sharded(out, p.ln_x, cfg.rmsnorm_eps, tp) * F.silu(g)
+    out = row_parallel_out(out @ p.w_o, lora("o", out) if lora else 0.0,
+                           tp)
     return out, {"wkv": s, "x_tm": x[:, -1, :]}
 
 
-def rwkv6_channel_mix(cfg, p: RWKV6, x, state):
+def rwkv6_channel_mix(cfg, p: RWKV6, x, state, tp=None):
     xx = _token_shift(x, state["x_cm"])
     xm = x + (xx - x) * p.mu_cm
     h = torch.square(torch.relu(xm @ p.wk_cm))
-    return h @ p.wv_cm, {"x_cm": x[:, -1, :]}
+    return all_reduce_(h @ p.wv_cm, tp), {"x_cm": x[:, -1, :]}

@@ -24,12 +24,16 @@ on the CPU. ``"einsum"`` selects the gather-einsum path.
 turns on the tensor-parallel mode: this process is one rank of an SPMD
 group, every rank runs the same engine on the same requests, and the
 engine keeps the rank's slice of the weights, the cache and the
-co-sharded bank (``serving.sharding``). The bank is sharded again after
-every rebuild and install. Bank kernels at tp > 1: B3a/B3b (padded) and
-B4a/B4b (bucketed). Tokens are identical on every rank (the hidden state
-after each all-reduce is), and match the single-device engine's by token,
-not by bit: the all-reduce reorders the d-sums. Not ported: data
-parallelism (ROADMAP).
+co-sharded bank (``serving.sharding``), for every family; ``params``
+may be the rank's slice already (``models.model.init_params(tp=...)``).
+The bank is sharded again after every rebuild and install. Bank kernels
+at tp > 1: B3a/B3b (padded) and B4a/B4b (bucketed). Tokens are identical
+on every rank (the hidden state after each all-reduce is), and match the
+single-device engine's by token, not by bit: the all-reduce reorders the
+d-sums. The MoE family's prefill runs the reference's expert-parallel
+path, whose capacity drops tokens, so its tokens are the JAX mesh
+engine's rather than one device's. Not ported: data parallelism
+(ROADMAP A9).
 
 The VLM and audio families take a frontend at prefill: as the JAX engine
 does, a group of n rows gets fp32 zeros (n, M, d), M the config's

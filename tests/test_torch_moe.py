@@ -25,6 +25,7 @@ LoRA banks made in JAX and bridged through numpy:
 Tolerances: fp32 atol = rtol = 1e-4 (``tests/test_torch_models.py``'s:
 the two frameworks sum in different orders); routing and tokens exact.
 """
+import dataclasses
 import time
 
 import jax
@@ -296,12 +297,34 @@ def test_engine_tokens_match_jax_engine(setup, jax_engine_run, bank_mode,
 
 
 def test_tensor_parallel_refuses_moe_and_mla(setup):
+    """Once refused, now served (``test_torch_tp_families.py``): a tp = 2
+    rank's layout of the MoE layer (its E/2 experts, its columns of the
+    shared experts, the router whole) and of MLA (its heads; the latent
+    projection whole) builds, and so does its engine; an expert count
+    that tp does not divide is still refused."""
     cfg, _, tp = setup
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EngineSharding(TensorParallel(None, 0, 2), cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServingEngine(cfg, tp, dict(ADAPTERS), mesh=TensorParallel(None, 0, 2),
-                      device="cpu")
+    mesh = TensorParallel(None, 1, 2)
+    part = EngineSharding(mesh, cfg).shard_params(tp)
+    ffn, attn = part.blocks[0].ffn, part.blocks[0].attn
+    e = cfg.moe
+    assert ffn.we1.shape == (e.n_experts // 2, cfg.d_model, e.d_ff_expert)
+    torch.testing.assert_close(ffn.we1, tp.blocks[0].ffn.we1[
+        e.n_experts // 2:], rtol=0, atol=0)
+    assert ffn.router is tp.blocks[0].ffn.router
+    if e.n_shared_experts:
+        assert ffn.ws2.shape[0] * 2 == e.n_shared_experts * e.d_ff_expert
+    if cfg.mla is not None:
+        assert attn.w_uk.shape[1] * 2 == cfg.n_heads * \
+            cfg.mla.qk_nope_head_dim
+        assert attn.w_dkv is tp.blocks[0].attn.w_dkv
+    else:
+        assert attn.wq.shape[1] * 2 == cfg.n_heads * cfg.resolved_head_dim
+    eng = ServingEngine(cfg, tp, dict(ADAPTERS), mesh=mesh, device="cpu")
+    assert eng.cache["c" if cfg.mla else "k"].shape[3] == (
+        cfg.mla.kv_lora_rank if cfg.mla else cfg.n_kv_heads // 2)
+    with pytest.raises(ValueError, match="n_experts"):
+        EngineSharding(TensorParallel(None, 0, 8),
+                       dataclasses.replace(cfg, n_heads=8, d_model=128))
 
 
 def _full_widths():

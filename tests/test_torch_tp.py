@@ -18,7 +18,9 @@ weights and nonzero-B banks:
   module back together, and a tp engine gives a peer full-width adapter
   weights;
 * the layout refuses dp > 1, a missing process group and an indivisible
-  config; the launcher serves with ``--mesh 1,2 --backend gloo``.
+  config, and builds a rank's layout of the recurrent, VLM and audio
+  families (``test_torch_tp_families.py`` serves them); the launcher
+  serves with ``--mesh 1,2 --backend gloo``.
 
 Each world size is spawned once (a module fixture) and runs every case.
 """
@@ -40,6 +42,7 @@ from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
 from repro_torch import bridge
 from repro_torch.launch.mesh import TensorParallel, make_engine_mesh, spawn
+from repro_torch.models import model as TM
 from repro_torch.serving.sharding import EngineSharding
 
 MODEL = "llama-7b-paper"
@@ -165,13 +168,13 @@ def test_ranks_agree_and_slices_reassemble(setup, ranks):
         assert o["engine"] == outs[0]["engine"]
     full = bridge.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
                                     device="cpu")
-    bridge.check_shards(full, [o["shards"] for o in outs])
+    bridge.check_shards(cfg, full, [o["shards"] for o in outs])
     assert outs[0]["shards"]["blocks.0.attn.wq"].shape == (
         cfg.d_model, cfg.d_model // tp)
     bad = [dict(o["shards"]) for o in outs]
     bad[0], bad[-1] = bad[-1], bad[0]            # ranks out of order
     with pytest.raises(ValueError, match="back together"):
-        bridge.check_shards(full, bad)
+        bridge.check_shards(cfg, full, bad)
     for o in outs:                   # a peer reads full-width weights
         for t, w in weights["a-r8"].items():
             np.testing.assert_array_equal(o["adapter_weights"][t]["A"],
@@ -195,12 +198,25 @@ def test_layout_refusals(monkeypatch):
     cfg = get_smoke_config(MODEL)
     with pytest.raises(ValueError, match="divisible"):
         EngineSharding(TensorParallel(None, 0, 3), cfg)
-    # the recurrent, VLM and audio families run at tp = 1 only (ROADMAP A9)
+    # the recurrent, VLM and audio families are sharded too: a rank's
+    # layout builds, its slices hold the rank's heads
     for arch in ("zamba2-7b", "rwkv6-7b", "llama-3.2-vision-90b",
                  "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            EngineSharding(TensorParallel(None, 0, 2),
-                           get_smoke_config(arch))
+        cfg = get_smoke_config(arch)
+        sh = EngineSharding(TensorParallel(None, 1, 2), cfg)
+        part = sh.shard_params(TM.init_params(cfg, 0, device="cpu"))
+        assert part.tp_shard == (1, 2)
+        w = dict(part.named_parameters())
+        if cfg.family == "hybrid":
+            assert w["mamba_blocks.0.w_dt"].shape[1] * 2 == \
+                TM.mamba_dims(cfg)[1]
+        elif cfg.family == "ssm":
+            assert w["blocks.0.w_r"].shape == (cfg.d_model, cfg.d_model // 2)
+        else:
+            name = "cross_blocks.0.attn.wk" if cfg.family == "vlm" \
+                else "dec_blocks.0.cross.wk"
+            assert w[name].shape[1] == cfg.n_kv_heads // 2 * \
+                cfg.resolved_head_dim
 
 
 def test_launcher_serves_tensor_parallel(monkeypatch, capfd):
