@@ -274,7 +274,31 @@ Phases (any failure raises; the script then exits non-zero):
                fp32, timed, bounded, with the SGMV yardsticks; the
                collectives' ms per call (all-reduce, and the MoE's
                all-to-all and all-gather) and rank 0's TTFT, TBT and peak
-               memory logged.
+               memory logged; each rank's peaks beside those of a
+               replicated embed and ``lm_head`` (``REPLICATED_PEAKS``).
+ 14. dp      — after phase 13, data parallelism: llama-7b-paper at full
+               width and depth (bf16 weights from phase 2's seed, each
+               rank drawing its slice), phase 2's trace (8 requests,
+               prompts 4 x 64, 2 x 128 and 2 x 1000, 16 new tokens, max
+               batch 8) padded and bucketed, decode blocks 1 and 4, as
+               gloo ranks on the one card: (a) (dp, tp) = (2, 1), two
+               ranks with the whole model each; (b) (2, 2), four ranks
+               with the vocab-parallel head. Each world is spawned,
+               checked and gone before the next. Every rank's cache holds
+               4 of the 8 slot rows; B1/B2 (a) or B3a/B3b and B4a/B4b (b)
+               launch once per LoRA call and B5 once a layer per prefill
+               group, counted from 0 around each run; every rank emits the
+               same tokens and first-prefill logits; padded == bucketed
+               tokens and logits bit for bit; phase 5's fp32 2-layer
+               trace at (dp, tp) emits phase 5's tokens, its prefill
+               logits within 1e-3 (the distance printed); the bf16 tokens
+               against phase 2's dp = 1 tokens printed, not asserted;
+               each rank's peak memory and rank 0's TTFT and TBT logged
+               beside nvidia-smi's line. (c) ``python -m
+               repro_torch.launch.serve --config full --servers 2 --mesh
+               1,2 --backend gloo`` exits 0 with every request finished,
+               the report on ``mesh=(1, 2)`` and ``cluster drained OK``.
+               The kernels line adds (a)'s and (b)'s launches.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -966,7 +990,7 @@ def phase_engine(dev):
         del eng
     assert tp_ref["padded"][0] == tp_ref["bucketed"][0]
     assert torch.equal(tp_ref["padded"][1], tp_ref["bucketed"][1])
-    return cfg, launches, rec.calls, banks, tp_ref, params, einsum
+    return cfg, launches, rec.calls, banks, tp_ref, params, einsum, first
 
 
 def _noise_floor(cfg, params, dev, tp_ref, einsum):
@@ -2329,8 +2353,8 @@ class Perturbed:
     def __enter__(self):
         self.orig = self.model._embed
 
-        def embed(params, tokens):
-            x = self.orig(params, tokens)
+        def embed(cfg, params, tokens, tp=None):
+            x = self.orig(cfg, params, tokens, tp)
             g = torch.Generator(device=x.device).manual_seed(1)
             return x * (1 + self.eps * torch.randn(
                 x.shape, generator=g, device=x.device, dtype=x.dtype))
@@ -3108,6 +3132,12 @@ def _family_checks(arch, outs, ref, smi):
                 if key in a:
                     assert torch.equal(b[key], a[key]), (arch, mode, key)
         assert fam["fp32"] == outs[0][arch]["fp32"], (arch, "fp32 ranks")
+    peaks = "; ".join(
+        f"rank {r} " + ", ".join(f"{m} {o[arch]['bf16'][m]['peak_gb']:.2f}"
+                                 for m in ("padded", "bucketed"))
+        for r, o in enumerate(outs))
+    log(f"{tag} peak GB a rank, vocab-parallel embed and lm_head: {peaks}; "
+        f"both replicated: {REPLICATED_PEAKS[arch]} | {smi}")
     o = outs[0][arch]
     pad, bkt = o["bf16"]["padded"], o["bf16"]["bucketed"]
     assert pad["tokens"] == bkt["tokens"], (arch, "modes' tokens differ")
@@ -3211,6 +3241,233 @@ def phase_tp_families(dev, smi):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data parallelism and the cluster on a mesh
+# ---------------------------------------------------------------------------
+DP = 2
+# phase 13's peak GB a rank (rank 0 and 1, padded and bucketed) with embed
+# and lm_head replicated: the whole script's run on an NVIDIA H100 80GB HBM3
+# at 700 W before they were split (PERF.md section 6)
+REPLICATED_PEAKS = {DEEPSEEK: "18.00-18.14", LLAMA4: "26.23-26.32",
+                    ZAMBA: "8.83-8.84", RWKV: "9.67-11.05",
+                    SEAMLESS: "5.30-5.37", VISION: "17.82-18.02"}
+
+
+def _dp_rank(rank, dp, tp, out_dir):
+    """One rank of phase 14 at (dp, tp), spawned with a default gloo group:
+    phase 2's trace on llama-7b-paper at full width and depth (bf16
+    weights from phase 2's seed, the rank's slice drawn block by block),
+    padded and bucketed, decode blocks 1 and 4, then phase 5's fp32
+    2-layer trace. Writes ``dp-rank{rank}.pt``; rank 0 also
+    ``dp-calls.pt``, copies of its bf16 calls of every kernel of the
+    path."""
+    from contextlib import nullcontext
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_engine_mesh(dp, tp, device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config("llama-7b-paper")
+    t0 = time.monotonic()
+    params = M.init_params(cfg, 0, dtype=torch.bfloat16, device=dev,
+                           tp=mesh)
+    torch.cuda.synchronize()
+    trace, _, weights = _serve_trace(cfg, 8, dev)
+    wrappers = _wrappers()
+    out = {"bf16": {}, "fp32": {}, "fp32_logits": {},
+           "coords": (mesh.dp.rank, mesh.rank),
+           "init_s": time.monotonic() - t0}
+    rec = MainPathCalls(tp=tp > 1, widths=_tp_call_widths if tp > 1
+                        else True) if rank == 0 else None
+    for mode in ("padded", "bucketed"):
+        for db in (1, 4):
+            # the main path: counts at 0 just before each engine run, read
+            # just after
+            for k in wrappers.values():
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            with rec or nullcontext():
+                eng, reqs, s = serve(cfg, params, trace, weights=weights,
+                                     bank_mode=mode, lora_kernel="sgmv",
+                                     decode_block=db, max_batch=8,
+                                     mesh=mesh, device=dev)
+                torch.cuda.synchronize()
+            b = out["bf16"][(mode, db)] = dict(
+                tokens=[r.output for r in reqs], summary=s,
+                grew={kid: k.launches for kid, k in wrappers.items()},
+                passes=eng.prefill_dispatches + eng.decode_iterations,
+                prefills=eng.prefill_dispatches,
+                rows=eng.cache["pos"].shape[0],
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+            if db == 1:                  # off the counted run
+                b["logits"] = _group_logits(cfg, eng, trace, 64,
+                                            mesh=eng.tp)
+            del eng
+            _free()
+    if rec is not None:
+        torch.save({k: _move(v, "cpu") for k, v in rec.calls.items()},
+                   Path(out_dir) / "dp-calls.pt")
+    del params, rec
+    _free()
+    cfg2, params2, trace2, weights2 = _parity_setup(dev)
+    for mode in ("padded", "bucketed"):
+        eng, reqs, _ = serve(cfg2, params2, trace2, weights=weights2,
+                             bank_mode=mode, lora_kernel="sgmv", max_batch=8,
+                             mesh=mesh, device=dev)
+        out["fp32"][mode] = [r.output for r in reqs]
+        out["fp32_logits"][mode] = _group_logits(cfg2, eng, trace2, 24,
+                                                 mesh=eng.tp)
+        del eng
+    del params2
+    _free()
+    torch.save(out, Path(out_dir) / f"dp-rank{rank}.pt")
+
+
+def _dp_checks(cfg, dp, tp, outs, fp32_ref, dp1_tokens, smi):
+    """Phase 14 (a)/(b)'s assertions on every rank's outputs; returns rank
+    0's launches of the main path."""
+    tag = f"dp ({dp}, {tp})"
+    launches = {kid: 0 for kid in KERNELS}
+    runs = list(outs[0]["bf16"])
+    for r, o in enumerate(outs):
+        assert o["coords"] == (r // tp, r % tp), (r, o["coords"])
+        for key in runs:
+            b, a = o["bf16"][key], outs[0]["bf16"][key]
+            mode = key[0]
+            want = (_path_launches if tp == 1 else _tp_path_launches)(
+                cfg, mode, b["passes"], b["prefills"])
+            assert b["grew"] == want, (tag, r, key, b["grew"], want)
+            assert b["rows"] == 8 // dp, b["rows"]   # the slot batch split
+            assert all(len(t) == 16 for t in b["tokens"]), (tag, r, key)
+            assert all(0 <= t < cfg.vocab_size for q in b["tokens"]
+                       for t in q)
+            assert b["tokens"] == a["tokens"], (tag, key, "ranks' tokens")
+            if "logits" in b:
+                assert torch.isfinite(b["logits"]).all()
+                assert torch.equal(b["logits"], a["logits"]), (tag, key)
+            if r == 0:
+                for kid, n in b["grew"].items():
+                    launches[kid] += n
+        assert o["fp32"] == outs[0]["fp32"], (tag, "ranks' fp32 tokens")
+        s = ", ".join(f"{m}/{d} {o['bf16'][(m, d)]['peak_gb']:.2f}"
+                      for m, d in runs)
+        log(f"{tag} rank {r} (dp rank {r // tp}, tp rank {r % tp}) peak GB "
+            f"{s} | {smi}")
+    o = outs[0]["bf16"]
+    first = o[runs[0]]["tokens"]
+    for key in runs:
+        assert o[key]["tokens"] == first, (tag, key, "differs from", runs[0])
+        s, b = o[key]["summary"], o[key]
+        log(f"{tag} rank 0 {key[0]} decode_block={key[1]} | {smi}: "
+            f"finished={s['finished']}/8 passes={b['passes']} launches "
+            f"{ {k: v for k, v in b['grew'].items() if v} } "
+            f"p50_ttft_ms={s['p50_ttft'] * 1e3:.2f} "
+            f"p95_ttft_ms={s['p95_ttft'] * 1e3:.2f} "
+            f"mean_tbt_ms={s['mean_tbt'] * 1e3:.3f} "
+            f"decode_tok_s={s['decode_tok_s']:.1f} wall_s={s['wall_s']:.3f}"
+            f" peak_gb={b['peak_gb']:.2f}")
+    assert torch.equal(o[("padded", 1)]["logits"],
+                       o[("bucketed", 1)]["logits"]), (tag, "modes' logits")
+    log(f"{tag}: every rank emits the same tokens and first-prefill "
+        f"logits; padded == bucketed tokens (decode blocks 1 and 4) and "
+        f"logits bit for bit")
+    same = sum(a == b for a, b in zip(first, dp1_tokens))
+    agree = sum(x == y for a, b in zip(first, dp1_tokens)
+                for x, y in zip(a, b))
+    log(f"{tag} bf16 full depth vs phase 2's dp = 1 tokens (printed, not "
+        f"asserted): {same}/8 requests and {agree}/128 tokens equal")
+    fp32_tokens, fp32_logits = fp32_ref
+    for mode in ("padded", "bucketed"):
+        assert outs[0]["fp32"][mode] == fp32_tokens, (tag, mode)
+        err = (outs[0]["fp32_logits"][mode] - fp32_logits).abs().max().item()
+        log(f"{tag} fp32 2 layers {mode}: tokens == dp = 1's; prefill "
+            f"logits max abs diff vs dp = 1 {err:.3e} (tol 1e-3)")
+        assert err <= 1e-3, (tag, mode, err)
+    return launches
+
+
+def _dp_kernels(dp, tp, calls, results):
+    """The SGMV kernels of (dp, tp)'s path on rank 0's copied decode calls,
+    a replica's 8 / dp slot rows (B1/B2 at tp = 1, B3a/B3b/B4a/B4b on
+    the local widths at tp = 2), against their plain versions in bf16
+    and fp32, timed and bounded, with their yardsticks. Its prefill
+    groups are phase 2's and 6's: every replica prefills the whole
+    group."""
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for kid in ("B1", "B2") if tp == 1 else ("B3a", "B3b", "B4a", "B4b"):
+        keys = [k for k in calls
+                if k[:2] == (KERNELS[kid][0], "decode")]
+        assert keys, (kid, sorted(calls))
+        for key in keys:
+            args, kw, dest = _move(calls[key], dev)
+            assert dest.shape[0] == 8 // dp, (kid, dest.shape)
+            label = f"dp{dp}x{tp}-decode-w{'x'.join(map(str, key[2:]))}"
+            _check_and_time(kid, label, args, kw, dest, flush, results)
+            _yardstick(kid, label, args, kw, dest, flush)
+    del flush
+
+
+def _dp_launcher(smi):
+    """Phase 14 (c): ``launch/serve.py --config full --servers 2 --mesh
+    1,2`` as a subprocess, two gloo ranks on the card: exit 0, every
+    request finished, the report on the mesh."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    args = ["repro_torch.launch.serve", "--config", "full", "--servers",
+            "2", "--mesh", "1,2", "--backend", "gloo", "--bank-mode",
+            "bucketed", "--decode-block", "4", "--requests", "8",
+            "--duration", "2"]
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    assert proc.returncode == 0, (proc.returncode, proc.stdout,
+                                  proc.stderr[-4000:])
+    assert lines and lines[-1] == "cluster drained OK", proc.stdout
+    assert "mesh=(1, 2)" in proc.stdout and "finished=8/8" in proc.stdout, \
+        proc.stdout
+    assert proc.stdout.count("finished=") == 1, proc.stdout
+    log(f"dp launcher python -m {' '.join(args)} | {smi}: exit 0 in "
+        f"{time.monotonic() - t0:.1f}s; it printed: {' | '.join(lines)}")
+
+
+def phase_dp(dev, smi, fp32_ref, dp1_tokens):
+    """Phase 14: (a) dp = 2, tp = 1 and (b) dp = 2, tp = 2 as gloo ranks on
+    the card, each world spawned, checked and gone before the next, its
+    kernels checked on rank 0's decode calls; (c) the cluster launcher on
+    a (1, 2) mesh. Returns (rank 0's launches of (a) and (b)'s main path,
+    the kernels' results at a replica's rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    cfg = get_config("llama-7b-paper")
+    launches, results = {kid: 0 for kid in KERNELS}, {}
+    for dp, tp in ((DP, 1), (DP, 2)):
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn(_dp_rank, dp * tp, backend="gloo",
+                  init_file=Path(tmp) / "init", args=(dp, tp, tmp))
+            outs = [torch.load(Path(tmp) / f"dp-rank{r}.pt",
+                               weights_only=False) for r in range(dp * tp)]
+            calls = torch.load(Path(tmp) / "dp-calls.pt", weights_only=False)
+        for kid, n in _dp_checks(cfg, dp, tp, outs, fp32_ref, dp1_tokens,
+                                 smi).items():
+            launches[kid] += n
+        t1 = time.monotonic()
+        _dp_kernels(dp, tp, calls, results)
+        del calls
+        log(f"phase dp ({dp}, {tp}): {time.monotonic() - t0:.1f}s "
+            f"(rank 0 init {outs[0]['init_s']:.1f}s; kernels "
+            f"{time.monotonic() - t1:.1f}s)")
+    t0 = time.monotonic()
+    _dp_launcher(smi)
+    log(f"phase dp launcher: {time.monotonic() - t0:.1f}s")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3232,7 +3489,8 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f}s")
 
     t0 = time.monotonic()
-    cfg, launches, calls, banks, tp_ref, params, einsum = phase_engine(dev)
+    cfg, launches, calls, banks, tp_ref, params, einsum, dp1_tokens = \
+        phase_engine(dev)
     log(f"phase engine: {time.monotonic() - t0:.1f}s")
     t0 = time.monotonic()
     phase_cluster(dev, cfg, params, smi)
@@ -3300,6 +3558,14 @@ def main() -> int:
         launches[kid] += n
     log(f"phase tpfam: {time.monotonic() - t0:.1f}s; launches "
         f"{ {k: v for k, v in fam_launches.items() if v} }")
+    _free()
+    t0 = time.monotonic()
+    dp_launches, dp_res = phase_dp(dev, smi, fp32_ref, dp1_tokens)
+    kres.update(dp_res)
+    for kid, n in dp_launches.items():
+        launches[kid] += n
+    log(f"phase dp: {time.monotonic() - t0:.1f}s; launches "
+        f"{ {k: v for k, v in dp_launches.items() if v} }")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

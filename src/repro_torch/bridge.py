@@ -15,7 +15,7 @@ from repro_torch.device import resolve_device
 from repro_torch.lora.bank import LoRABank
 from repro_torch.models.model import BaseLM, DenseLM, init_params
 from repro_torch.launch.mesh import TensorParallel
-from repro_torch.serving.sharding import PARAM_SPLIT, EngineSharding
+from repro_torch.serving.sharding import EngineSharding
 
 
 def _t(a, device, dtype=None):
@@ -90,23 +90,23 @@ def check_shards(cfg, full: BaseLM, shards) -> None:
     ``shards`` holds each rank's ``{name: tensor or array}`` (its
     ``named_parameters()``), in rank order. Split parameters are joined
     along their axis as ``serving.sharding.EngineSharding`` split them
-    (``PARAM_SPLIT``; the regrouped kv heads and Mamba2's ``[x | z]``
-    by their indices); replicated ones must equal the full module's on
-    every rank."""
+    (``PARAM_SPLIT``, the vocabulary where tp divides it; the regrouped
+    kv heads and Mamba2's ``[x | z]`` by their indices); replicated ones
+    must equal the full module's on every rank."""
     layout = EngineSharding(TensorParallel(None, 0, len(shards)), cfg)
     for name, want in full.named_parameters():
         parts = [torch.as_tensor(sh[name]) for sh in shards]
         leaf = name.rsplit(".", 1)[-1]
-        axis = PARAM_SPLIT.get(leaf)
+        axis = layout.axis(leaf)
         for g in parts if axis is None else [layout.join(parts, axis, leaf)]:
             if not torch.equal(g.to(want.device, want.dtype), want.detach()):
                 raise ValueError(f"{name}: the ranks' slices do not put "
                                  "the full parameter back together")
 
 
-def adapter_weights_from_numpy(w, *, device="cpu", dtype=None):
+def adapter_weights_from_numpy(w, *, device="cuda", dtype=None):
     """One adapter's ``{target: {"A": (L, d, r), "B": (L, r, o)}}`` numpy
-    weights -> tensors, in the form ``ServingEngine.install_adapter``
-    and ``LoRABank.set_adapter`` take. They stay on the host by default:
-    installing copies them to the bank's device."""
+    weights -> tensors on ``device``, in the form
+    ``ServingEngine.install_adapter`` and ``LoRABank.set_adapter`` take
+    (installing copies them to the bank's device)."""
     return _bank_tree(w, resolve_device(device), dtype)

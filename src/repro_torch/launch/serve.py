@@ -16,16 +16,23 @@ would make every delta 0). ``--profile`` traces the served run with
 ``torch.profiler`` and prints device time by kernel, the device's busy
 share of the run, and the idle gaps between kernels by size.
 
-``--mesh 1,TP`` serves on a tensor-parallel engine of TP ranks, one
-process each, spawned here (``launch.mesh.spawn``) and meeting over
-``--backend`` (nccl: one card per rank; gloo: also on the CPU, or several
-ranks on one card). Every rank serves the same trace; rank 0 prints the
-report. Every family is served so. Example, on the CPU:
+``--mesh DP,TP`` serves on an engine over a (DP, TP) mesh of DP x TP
+ranks, one process each, spawned here (``launch.mesh.spawn``) and
+meeting over ``--backend`` (nccl: one card per rank; gloo: also on the
+CPU, or several ranks on one card): TP tensor-parallel ranks a slice of
+the weights, DP replicas of them that split the slot batch. Every rank
+serves the same trace; rank 0 prints the report. Every family is served
+so. Examples, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
       --device cpu --mesh 1,2 --backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
+      --device cpu --mesh 2,2 --backend gloo
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-lite-16b --config smoke --device cpu \
       --mesh 1,2 --backend gloo
+and on one card, two ranks sharing it:
+  PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2,1 \
+      --backend gloo --bank-mode bucketed --decode-block 4
 
 ``--servers N`` serves through the cluster facade instead, as the JAX
 package's launcher does: ``LoRAServeCluster`` over an ``EngineBackend`` of
@@ -34,9 +41,15 @@ bank holding only its placed adapter subset. The facade runs placement,
 phi-routing, the adapter store and demand estimation, and rebalances
 while requests are in flight: arrivals spread over ``--duration`` wall
 seconds with drifting popularity (low ranks early, high ranks late). The
-engines step in turn on one device. Example, on the CPU:
+engines step in turn on one device. With ``--mesh DP,TP`` every
+server's engine runs on that mesh (``EngineBackend(mesh_shape=...)``):
+DP x TP ranks each hold their slice of every engine, rank 0 runs the
+facade and prints the report, and the others follow its calls. Examples,
+on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
       --device cpu --servers 2 --requests 12 --duration 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --config smoke \
+      --device cpu --servers 2 --mesh 1,2 --backend gloo
 
 ``--serve HOST:PORT`` serves that cluster (2 servers unless ``--servers``
 says otherwise) over the streaming HTTP gateway until SIGTERM instead
@@ -46,14 +59,20 @@ per tenant). ``--trace-out PATH`` records the span tree of every request
 ``--flight-recorder DIR`` dumps the recent spans on SLO violations and
 scale events; with either, the report ends with the cost-model drift per
 phase: measured spans against the paper's A100 fleet model
-(``cluster/costmodel.py``), not a model of the card. Example, on the card:
+(``cluster/costmodel.py``), not a model of the card. With ``--mesh
+DP,TP`` the gateway runs on rank 0 over the mesh's engines, and SIGTERM
+drains it and stops the other ranks. Examples, on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --serve 127.0.0.1:0 \
       --trace-out t.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve 127.0.0.1:0 \
+      --mesh 1,2 --backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import os
 import random
+import signal
 import tempfile
 import time
 import weakref
@@ -66,12 +85,13 @@ from repro_torch.cluster import NetworkModel
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import POLICIES, AdapterInfo, ServeRequest
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_engine_mesh, spawn
+from repro_torch.launch.mesh import TensorParallel, make_engine_mesh, spawn
 from repro_torch.lora.adapter import (_target_in_dim, _target_out_dim,
                                       bank_layers)
 from repro_torch.models import model as M
 from repro_torch.serving import (EngineBackend, LoRAServeCluster, Request,
                                  ServingEngine)
+from repro_torch.serving.backend import serve_follower
 
 RANKS = (8, 16, 32, 64, 128)
 
@@ -362,7 +382,10 @@ def make_cluster(cfg, params, adapters, weights, n_servers: int, *,
     sets up its cluster (``tracer``, ``flight_recorder``: the span layer,
     ``repro_torch.obs``; ``page_pool_factory``: a unified page pool for
     each engine). Building it places the adapters and builds the
-    engines."""
+    engines. Under ``mesh_shape`` it runs on rank 0; every other rank
+    builds its ``SeededWeightsBackend`` with the same arguments and
+    follows it (``backend.serve_follower``) until rank 0's
+    ``cluster.backend.close()``."""
     backend = SeededWeightsBackend(
         cfg, params, n_servers, weights=weights, max_batch=max_batch,
         max_len=max_len, seed=seed, bank_mode=bank_mode,
@@ -445,14 +468,21 @@ def print_cost_drift(report) -> None:
               f"(the paper's A100 model vs measured spans)")
 
 
-def _serve_cluster(args) -> None:
+def _serve_cluster(rank: int, dp: int, tp: int, args) -> None:
     """The ``--servers N`` and ``--serve`` paths: the JAX package's
-    launcher on the port."""
+    launcher on the port, as rank ``rank`` of a (dp, tp) mesh: rank 0
+    runs the facade and prints the report, the others follow it."""
     device = resolve_device(args.device)
+    meshed = dp * tp > 1
+    if meshed and device.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = (get_config if args.config == "full" else get_smoke_config)(
         args.arch)
     dtype = getattr(torch, args.dtype)
-    params = M.init_params(cfg, args.seed, dtype=dtype, device=device)
+    # the rank's slice only (its tp rank's; the dp replicas hold the same)
+    params = M.init_params(cfg, args.seed, dtype=dtype, device=device,
+                           tp=TensorParallel(None, rank % tp, tp))
     adapters = cluster_adapters(args.adapters)
     weights = adapter_weights(cfg, {a.adapter_id: a.rank for a in adapters},
                               dtype=dtype, device=device, seed=args.seed)
@@ -474,7 +504,6 @@ def _serve_cluster(args) -> None:
         from repro_torch.faults import FaultPlan
         fault_plan = FaultPlan.random_plan(
             args.chaos, horizon=args.duration, n_servers=args.servers)
-    dp, tp = (int(v) for v in args.mesh.split(","))
     tracer = recorder = None
     if args.trace_out or args.flight_recorder:
         from repro_torch.obs import FlightRecorder, Tracer, WallClock
@@ -483,19 +512,28 @@ def _serve_cluster(args) -> None:
             recorder = FlightRecorder(out_dir=args.flight_recorder)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-        warm_up(cfg, params, weights, bank_mode=args.bank_mode,
-                decode_block=args.decode_block, device=device)
+        if meshed:              # a rank's slice serves no engine alone
+            from repro_torch.kernels import build
+            build.load_library()
+        else:
+            warm_up(cfg, params, weights, bank_mode=args.bank_mode,
+                    decode_block=args.decode_block, device=device)
+    engines = dict(max_len=max(args.prompt_lens) + args.max_new + 8,
+                   max_batch=args.max_batch, seed=args.seed,
+                   bank_mode=args.bank_mode, decode_block=args.decode_block,
+                   lora_kernel=args.lora_kernel,
+                   mesh_shape=(dp, tp) if meshed else None, device=device)
+    if rank != 0:
+        serve_follower(SeededWeightsBackend(cfg, params, args.servers,
+                                            weights=weights, **engines))
+        return
     cluster = make_cluster(
-        cfg, params, adapters, weights, args.servers,
-        max_len=max(args.prompt_lens) + args.max_new + 8,
-        max_batch=args.max_batch, seed=args.seed, bank_mode=args.bank_mode,
-        decode_block=args.decode_block, lora_kernel=args.lora_kernel,
-        policy=args.policy, rebalance_period=args.rebalance_period,
+        cfg, params, adapters, weights, args.servers, policy=args.policy,
+        rebalance_period=args.rebalance_period,
         access_mode=args.access_mode, prefetch=args.prefetch,
         controller=controller, fault_plan=fault_plan,
-        detector_window=args.detector_window,
-        mesh_shape=None if (dp, tp) == (1, 1) else (dp, tp), tracer=tracer,
-        flight_recorder=recorder, device=device)
+        detector_window=args.detector_window, tracer=tracer,
+        flight_recorder=recorder, **engines)
 
     def spans(report):
         if args.trace_out:
@@ -516,18 +554,20 @@ def _serve_cluster(args) -> None:
         report = run_gateway(cluster, host or "127.0.0.1", int(port),
                              rate=args.rate, max_inflight=args.max_inflight,
                              announce=lambda s: print(s, flush=True))
+        cluster.backend.close()
         print(f"served={report.completed()} "
               f"timed_out={report.timed_out} "
               f"registered={report.registered} "
               f"unregistered={report.unregistered}")
         spans(report)
-        print("gateway drained OK")
+        print("gateway drained OK", flush=True)
         return
     trace = build_cluster_trace(adapters, cfg, args.requests,
                                 args.prompt_lens, args.max_new,
                                 args.duration, args.seed)
     report = (profiled(lambda: cluster.run(trace), device) if args.profile
               else cluster.run(trace))
+    cluster.backend.close()
     extra = cluster_summary(cluster, report, trace)
 
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
@@ -582,7 +622,7 @@ def _serve_cluster(args) -> None:
               f"gpu_seconds={report.gpu_seconds:.1f} "
               f"drift_events={len(report.drift_events)}")
     spans(report)
-    print("cluster drained OK")
+    print("cluster drained OK", flush=True)
 
 
 def parse_args(argv=None):
@@ -617,7 +657,8 @@ def parse_args(argv=None):
                     help="trace the run with torch.profiler; print device "
                          "time by kernel and the device's busy share")
     ap.add_argument("--mesh", default="1,1",
-                    help="DP,TP: TP tensor-parallel ranks (DP must be 1)")
+                    help="DP,TP: a mesh of DP x TP ranks, TP "
+                         "tensor-parallel ranks to a data-parallel replica")
     ap.add_argument("--backend", choices=["nccl", "gloo"],
                     help="torch.distributed backend of the ranks (default: "
                          "nccl on cuda, gloo on cpu)")
@@ -680,24 +721,38 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     args.prompt_lens = [args.prompt_len] if args.prompt_len is not None \
         else [int(v) for v in args.prompt_lens.split(",")]
+    args.dp, args.tp = (int(v) for v in args.mesh.split(","))
+    if args.dp < 1 or args.tp < 1:
+        raise ValueError(f"--mesh {args.mesh}: dp and tp must be positive")
     return args
 
 
 def main(argv=None):
     args = parse_args(argv)
+    resolve_device(args.device)          # no card: refuse before a spawn
     if args.serve and args.servers is None:
         args.servers = 2
-    if args.servers is not None:
-        _serve_cluster(args)
-        return
-    dp, tp = (int(v) for v in args.mesh.split(","))
-    if tp == 1 or dp != 1:              # dp > 1 is refused before a spawn
-        _serve_rank(0, dp, tp, args)
+    run = _serve_rank if args.servers is None else _serve_cluster
+    dp, tp = args.dp, args.tp
+    if dp * tp == 1:
+        run(0, dp, tp, args)
         return
     backend = args.backend or ("nccl" if args.device == "cuda" else "gloo")
     with tempfile.TemporaryDirectory() as tmp:
-        spawn(_serve_rank, tp, backend=backend,
-              init_file=Path(tmp) / "init", args=(dp, tp, args))
+        ranks = spawn(run, dp * tp, backend=backend,
+                      init_file=Path(tmp) / "init", args=(dp, tp, args),
+                      join=False)
+        # the gateway runs on rank 0: SIGTERM and SIGINT drain it there
+        forward = (lambda sig, _: os.kill(ranks.processes[0].pid, sig))
+        old = {sig: signal.signal(sig, forward)
+               for sig in (signal.SIGTERM, signal.SIGINT)} \
+            if args.serve else {}
+        try:
+            while not ranks.join():
+                pass
+        finally:
+            for sig, handler in old.items():
+                signal.signal(sig, handler)
 
 
 if __name__ == "__main__":

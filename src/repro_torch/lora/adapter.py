@@ -103,7 +103,7 @@ def _stack_adapters(singles):
 
 
 def init_bank_from(cfg, adapter_ranks: Dict[str, int], seed: int,
-                   n_layers=None, dtype=torch.float32, device="cpu"):
+                   n_layers=None, dtype=torch.float32, device="cuda"):
     """Bank {target: {"A": (L, Na, d, max_r), "B": (L, Na, max_r, o)}} over
     ``sorted(adapter_ranks)``, padded to the *subset's* max rank; weights
     keyed per adapter id via ``adapter_key``."""

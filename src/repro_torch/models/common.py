@@ -125,7 +125,7 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     return (out * scale.float()).to(x.dtype)
 
 
-def rope_freqs(head_dim: int, theta: float, device=None):
+def rope_freqs(head_dim: int, theta: float, device):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)

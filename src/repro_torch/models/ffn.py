@@ -16,7 +16,13 @@ experts take one of the reference's two paths:
   the packed (E, C, d) buffers with ``all_to_all_``, runs its experts,
   exchanges the outputs back and combines them, and ``all_gather_``
   puts the chunks side by side. ``moe_ffn_ep_ref`` computes the same on
-  one process;
+  one process. At dp > 1 (``tp.dp``, which the engine passes only where
+  its slot batch splits over dp) every dp replica holds the whole group,
+  takes its rows [i B/dp, (i + 1) B/dp) where dp divides B (the JAX
+  ``bspec``: each ("data", "model") shard sizes its capacity from its own
+  B/dp S/tp tokens), runs the path on them and ``all_gather_`` over dp
+  puts the rows back; where dp does not divide B every replica runs the
+  whole group, as the JAX mesh's "data" shards do;
 * the drop-free scatter path everywhere else (decode, S not divisible
   by tp): every rank routes every token, as at tp = 1, and computes the
   rows of its own experts; the (N, K, d) weighted rows are all-reduced.
@@ -25,11 +31,14 @@ experts take one of the reference's two paths:
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.launch.mesh import NO_DP
 
 from .common import (all_gather_, all_reduce_, all_to_all_,
                      dense_init, mm, tp_size)
@@ -231,6 +240,12 @@ def moe_ffn_ep(cfg, p: MoE, x, tp):
     rank's buffer, (E/tp, tp C, d) in the order of the senders; the
     outputs go back the same way, are combined into the chunk's (B S/tp,
     d) and ``all_gather_`` puts the chunks side by side."""
+    dp = tp.dp
+    if dp.size > 1 and x.shape[0] % dp.size == 0:
+        w = x.shape[0] // dp.size
+        y, aux = moe_ffn_ep(cfg, p, x[dp.rank * w:(dp.rank + 1) * w],
+                            dataclasses.replace(tp, dp=NO_DP))
+        return all_gather_(y, dp, dim=0), aux
     e = cfg.moe
     B, S, d = x.shape
     n, K, E = tp.size, e.top_k, e.n_experts

@@ -58,11 +58,18 @@ tensor-parallel model, of every family: ``params`` is the rank's slice
 ...)`` directly), the cache holds its heads (kv heads, regrouped where
 tp does not divide them; cross K/V heads; Mamba2 and WKV heads; MLA's
 latent and the RWKV-6 token shifts whole), and the LoRA bank its
-co-sharded slice. Embedding, norms and ``lm_head`` are replicated, and
-the hidden state after every all-reduce (or all-gather) is the same on
-every rank, so every rank computes the same logits. The MoE layers take
-the expert-parallel path at prefill where it applies
-(``ffn.ep_applicable``) and the drop-free path elsewhere.
+co-sharded slice. The norms are replicated; where tp divides V the
+embedding holds the rank's V/tp rows and ``lm_head`` its V/tp columns
+(vocab-parallel, the JAX package's ``_EMBED`` and ``_COL`` rules), and
+replicated otherwise. A rank looks its tokens up in its rows, writes
+zeros for the others and one all-reduce sums them, which is exact (one
+addend is nonzero); its logits are the (B, V/tp) fp32 slice, all-gathered
+along V, each logit the same dot product as at tp = 1. The hidden state
+after every all-reduce (or all-gather) is the same on every rank, so
+every rank computes the same logits. The MoE layers take the
+expert-parallel path at prefill where it applies (``ffn.ep_applicable``;
+at dp > 1 each dp replica routes its share of the group, as the JAX
+mesh's "data" shards do) and the drop-free path elsewhere.
 """
 from __future__ import annotations
 
@@ -77,7 +84,7 @@ from repro_torch.lora.batched import make_lora_cb
 from .attention import (CrossAttention, GQAAttention, MLAAttention,
                         cross_attend, cross_kv, gqa_decode, gqa_full,
                         local_kv_heads, mla_decode, mla_full)
-from .common import dense_init, rmsnorm, tp_size
+from .common import all_gather_, all_reduce_, dense_init, rmsnorm, tp_size
 from .ffn import MoE, SwiGLU, moe_ffn
 from .ssm import (Mamba2, RWKV6, mamba2_full, mamba2_state, mamba2_step,
                   mamba_dims, rwkv6_channel_mix, rwkv6_state,
@@ -278,21 +285,41 @@ def init_params(cfg, seed: int = 0, *, dtype=torch.float32,
     ``VisionLM`` or ``EncDecLM`` by ``cfg.family``. With ``tp`` (size >
     1), this rank's slice of the same weights, each block sliced as soon
     as it is drawn, so the full model is never held; the engine takes
-    it as it is (``tp_shard`` names the slice)."""
+    it as it is (``tp_shard`` names the slice); the embedding and the
+    head are drawn whole and cut to the rank's rows and columns once the
+    model is drawn."""
     _check_family(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
     if tp_size(tp) == 1:
         return _LM_CLASS[cfg.family](cfg, gen, dtype)
     from repro_torch.serving.sharding import EngineSharding
-    lm = _LM_CLASS[cfg.family](cfg, gen, dtype,
-                               EngineSharding(tp, cfg).shard_module)
+    sh = EngineSharding(tp, cfg)
+    lm = _LM_CLASS[cfg.family](cfg, gen, dtype, sh.shard_module)
+    for name in ("embed", "lm_head"):
+        p, axis = getattr(lm, name, None), sh.axis(name)
+        if p is not None and axis is not None:
+            setattr(lm, name, nn.Parameter(sh.split(p.detach(), axis, name),
+                                           requires_grad=False))
     lm.tp_shard = (tp.rank, tp.size)
     return lm
 
 
 def lm_head(cfg, params: BaseLM):
+    """(d, V), or the rank's (d, V/tp) columns where the vocabulary is
+    split."""
     return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
+def _vocab_split(cfg, params: BaseLM, tp) -> bool:
+    return tp_size(tp) > 1 and params.embed.shape[0] < cfg.vocab_size
+
+
+def _logits(cfg, params: BaseLM, h, tp):
+    """fp32 logits (B, V) of the last hidden state h (B, d): the rank's
+    (B, V/tp) slice all-gathered along V where the vocabulary is split."""
+    lg = h.float() @ lm_head(cfg, params).float()
+    return all_gather_(lg, tp) if _vocab_split(cfg, params, tp) else lg
 
 
 def bank_layer(bank, i: int):
@@ -369,8 +396,18 @@ def _mamba_layer(cfg, bp: Mamba2, x, state, step: bool, tp):
     return x + out, st
 
 
-def _embed(params: BaseLM, tokens):
-    return params.embed[tokens.long()]
+def _embed(cfg, params: BaseLM, tokens, tp=None):
+    """The tokens' embedding rows. Where the vocabulary is split, the rank
+    looks up the tokens in its rows, writes zeros for the others, and one
+    all-reduce sums the ranks' (exact: one addend is nonzero)."""
+    if not _vocab_split(cfg, params, tp):
+        return params.embed[tokens.long()]
+    n = params.embed.shape[0]
+    local = tokens.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    x = params.embed[local.clamp(0, n - 1)]
+    return all_reduce_(torch.where(mine[..., None], x, torch.zeros_like(x)),
+                       tp)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
@@ -548,7 +585,7 @@ def prefill(cfg, params: BaseLM, tokens, *, frontend=None, bank=None,
     window = cfg.sliding_window if window is None else window
     B, S = tokens.shape
     cache_len = cache_len or (min(S, window) if window else S)
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens, tp)
     cross = {}
     if n_cross_applications(cfg):
         if frontend is None:
@@ -564,7 +601,7 @@ def prefill(cfg, params: BaseLM, tokens, *, frontend=None, bank=None,
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
     h_last = rmsnorm(x[:, -1], params.ln_f, cfg.rmsnorm_eps)
-    return h_last.float() @ lm_head(cfg, params).float(), cache
+    return _logits(cfg, params, h_last, tp), cache
 
 
 def _decode_dense(cfg, params: DenseLM, cache, x, pos, *, window, bank,
@@ -650,7 +687,7 @@ def decode_step(cfg, params: BaseLM, cache, tokens, *, bank=None,
     _check_family(cfg)
     window = cfg.sliding_window if window is None else window
     pos = cache["pos"]
-    x = _embed(params, tokens[:, None])
+    x = _embed(cfg, params, tokens[:, None], tp)
     x = _DECODE[cfg.family](cfg, params, cache, x, pos, window=window,
                             bank=bank, lora_idx=lora_idx,
                             lora_kernel=lora_kernel, tp=tp,
@@ -658,4 +695,4 @@ def decode_step(cfg, params: BaseLM, cache, tokens, *, bank=None,
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     h_last = rmsnorm(x[:, 0], params.ln_f, cfg.rmsnorm_eps)
-    return h_last.float() @ lm_head(cfg, params).float(), new_cache
+    return _logits(cfg, params, h_last, tp), new_cache

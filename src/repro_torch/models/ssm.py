@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 from .common import (all_reduce_, dense_init, rmsnorm_sharded,
                      row_parallel_out, tp_size)
 
@@ -78,13 +80,13 @@ def init_mamba2(cfg, gen: torch.Generator, dtype=torch.float32) -> Mamba2:
     return Mamba2(cfg, gen, dtype)
 
 
-def mamba2_state(cfg, batch: int, dtype=torch.float32, device="cpu",
+def mamba2_state(cfg, batch: int, dtype=torch.float32, device="cuda",
                  tp=None):
     """The zero state of one layer: (B, H, hd, N), the rank's H / tp heads
     at tp > 1."""
     _, H, hd, N = mamba_dims(cfg)
     return torch.zeros((batch, H // tp_size(tp), hd, N), dtype=dtype,
-                       device=device)
+                       device=resolve_device(device))
 
 
 def _mamba_proj(cfg, p: Mamba2, u):
@@ -183,12 +185,13 @@ def init_rwkv6(cfg, gen: torch.Generator, dtype=torch.float32) -> RWKV6:
     return RWKV6(cfg, gen, dtype)
 
 
-def rwkv6_state(cfg, batch: int, dtype=torch.float32, device="cpu",
+def rwkv6_state(cfg, batch: int, dtype=torch.float32, device="cuda",
                 tp=None):
     """The zero state of one layer; the WKV state holds the rank's H / tp
     heads at tp > 1, the token shifts the full width."""
     d = cfg.d_model
     H, hd = rwkv_dims(cfg)
+    device = resolve_device(device)
     return {
         "wkv": torch.zeros((batch, H // tp_size(tp), hd, hd),
                            dtype=torch.float32,

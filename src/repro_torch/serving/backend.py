@@ -11,11 +11,24 @@ adapter subset first placed on it, every one over the SAME ``params``
 (one copy of the base weights however many servers share the device).
 Time is wall-clock seconds since ``start()``. Differences from the JAX
 class: ``device`` (default ``"cuda"``) goes to every engine;
-``lora_kernel`` defaults to the port's ``"sgmv"``; ``mesh_shape`` is
-refused (not ported); ``page_pool_factory`` gives each engine a pool of
-its own, as in the JAX package; ``memory_profile``
-reports the bytes of the bank the engine holds, which is built in the
-params' dtype (half the JAX package's fp32 bytes at bf16).
+``lora_kernel`` defaults to the port's ``"sgmv"``; ``page_pool_factory``
+gives each engine a pool of its own, as in the JAX package;
+``memory_profile`` reports the bytes of the bank the engine holds (on
+one rank's card, under a mesh), which is built in the params' dtype
+(half the JAX package's fp32 bytes at bf16).
+
+``mesh_shape=(dp, tp)`` serves every server on a (dp, tp) mesh, as the
+JAX backend does, where every server's mesh spans the same devices: the
+port runs one process per rank of a world of dp * tp
+(``launch.mesh.spawn``), and every rank builds the backend, holding its
+slice of every server's engine and one copy of its slice of the
+weights. Rank 0 leads: it runs the facade (``LoRAServeCluster``), and
+every backend call that touches an engine is sent, with its arguments
+(rank 0's ``now`` among them), to the other ranks over a gloo group
+before it runs; they follow (``serve_follower``), applying the calls in
+rank 0's order, so their engines meet rank 0's in every collective. Only
+rank 0 routes, so wall-clock routing cannot diverge. Rank 0's
+``close()`` stops the followers.
 
 ``SimBackend`` is a copy of the JAX package's discrete-event substrate
 (``SimServer`` + the ``ServerModel`` cost model of the paper's A100
@@ -24,6 +37,7 @@ not a device path.
 """
 from __future__ import annotations
 
+import functools
 import random
 import time
 from typing import Dict, List, Optional, Protocol, runtime_checkable
@@ -31,7 +45,6 @@ from typing import Dict, List, Optional, Protocol, runtime_checkable
 from repro_torch.core.request import ServeRequest
 from repro_torch.device import resolve_device
 from repro_torch.lora.adapter import bank_nbytes
-
 
 
 @runtime_checkable
@@ -361,6 +374,75 @@ class SimBackend:
 
 
 # ----------------------------------------------------------------------
+class _Channel:
+    """Rank 0's backend calls, broadcast to every rank of the world over a
+    gloo group of them all (made here: every rank constructs it, in the
+    same order as its other groups)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self._dist = dist
+        self.group = dist.new_group(backend="gloo")
+        self.leader = dist.get_rank() == 0
+
+    def send(self, msg) -> None:
+        self._dist.broadcast_object_list([msg], src=0, group=self.group)
+
+    def recv(self):
+        box = [None]
+        self._dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
+def _mirrored(fn):
+    """A backend call that touches an engine: on rank 0 of a mesh it is
+    sent to the followers before it runs (the outermost call only: one
+    that another makes runs on every rank by itself), with the outcome of
+    the call before it (the type of its exception, or None), which each
+    follower holds against its own."""
+    @functools.wraps(fn)
+    def call(self, *args, **kw):
+        ch = self._channel
+        if ch is None or not ch.leader or self._depth:
+            return fn(self, *args, **kw)
+        ch.send((fn.__name__, args, kw, self._outcome))
+        self._depth += 1
+        self._outcome = None
+        try:
+            return fn(self, *args, **kw)
+        except Exception as e:
+            self._outcome = type(e).__name__
+            raise
+        finally:
+            self._depth -= 1
+    return call
+
+
+def serve_follower(backend) -> None:
+    """A rank other than 0 of a mesh-sharded ``EngineBackend``: apply rank
+    0's calls in its order until it closes. Each call's outcome must be
+    rank 0's (a deterministic call fails on every rank alike); the
+    completions and timeouts a step makes are rank 0's to report, and
+    are dropped here."""
+    ch, mine = backend._channel, None
+    while True:
+        msg = ch.recv()
+        if msg is None:
+            return
+        name, args, kw, theirs = msg
+        if theirs != mine:
+            raise RuntimeError(f"rank 0's call before {name!r} ended in "
+                               f"{theirs}, this rank's in {mine}")
+        mine = None
+        try:
+            getattr(backend, name)(*args, **kw)
+        except Exception as e:
+            mine = type(e).__name__
+        if name == "step":
+            backend.drain_completed()
+            backend.drain_timed_out()
+
+
 class EngineBackend:
     """Real-engine substrate: one placement-aware ``ServingEngine`` per
     server, created lazily with the adapter subset first loaded onto it.
@@ -381,15 +463,27 @@ class EngineBackend:
                  lora_kernel: str = "sgmv",
                  mesh_shape: Optional[tuple] = None, device="cuda"):
         from .engine import ServingEngine
-        if mesh_shape is not None:
-            raise NotImplementedError(
-                f"mesh_shape={mesh_shape}: the port's tensor parallelism "
-                "runs one process per rank, and wall-clock routing would "
-                "diverge between ranks (ROADMAP A9)")
         self._engine_cls = ServingEngine
         self._page_pool_factory = page_pool_factory
         self.device = resolve_device(device)
         self.cfg = cfg
+        # mesh-sharded engines: every server's engine over this rank's
+        # place in the (dp, tp) mesh (outside a world of dp * tp ranks
+        # ``make_engine_mesh`` refuses), over one shared copy of its slice
+        # of the weights; None keeps the single-device engines unchanged
+        self.mesh_shape = mesh_shape
+        self.mesh = self._channel = None
+        self._depth, self._outcome = 0, None
+        if mesh_shape is not None:
+            from repro_torch.launch.mesh import make_engine_mesh
+
+            from .sharding import make_engine_sharding
+            self.mesh = make_engine_mesh(*mesh_shape, device=self.device)
+            sharding = make_engine_sharding(self.mesh, cfg)
+            if sharding is not None:
+                params = sharding.shard_params(params)
+            if mesh_shape[0] * mesh_shape[1] > 1:
+                self._channel = _Channel()
         self.params = params
         self.n_servers = n_servers
         self.bank_mode = bank_mode
@@ -428,7 +522,16 @@ class EngineBackend:
     def next_event_time(self, now: float) -> Optional[float]:
         return None
 
+    # -- the mesh's followers -------------------------------------------
+    def close(self) -> None:
+        """On rank 0 of a mesh, stop the followers (``serve_follower``
+        returns); nothing elsewhere."""
+        if self._channel is not None and self._channel.leader:
+            self._channel.send(None)
+            self._channel = None
+
     # -- request path ---------------------------------------------------
+    @_mirrored
     def submit(self, server_id: int, req: ServeRequest,
                now: float) -> None:
         eng = self.engines[server_id]
@@ -447,6 +550,7 @@ class EngineBackend:
                           for _ in range(plen)]
         eng.submit(req)
 
+    @_mirrored
     def step(self, now: float) -> None:
         for sid, eng in enumerate(self.engines):
             if eng is None or sid in self.failed:
@@ -501,6 +605,7 @@ class EngineBackend:
         return min(1.0, eng.active / max(1, self.max_batch))
 
     # -- placement path -------------------------------------------------
+    @_mirrored
     def load_adapters(self, server_id: int,
                       adapter_ranks: Dict[str, int]) -> None:
         if not adapter_ranks:
@@ -515,11 +620,12 @@ class EngineBackend:
                 decode_block=self.decode_block,
                 lora_kernel=self.lora_kernel, page_pool=pool,
                 clock=self.wall_now,
-                tracer=self.tracer, server_id=server_id,
+                mesh=self.mesh, tracer=self.tracer, server_id=server_id,
                 device=self.device)
         else:
             self.engines[server_id].load_adapters(adapter_ranks)
 
+    @_mirrored
     def load_adapter_remote(self, server_id: int, adapter_id: str,
                             rank: int, peer_server: int) -> None:
         """Remote read on the real substrate: the adapter's weights are
@@ -542,9 +648,11 @@ class EngineBackend:
         if weights is not None:
             self._remote[server_id].add(adapter_id)
 
+    @_mirrored
     def promote_adapter(self, server_id: int, adapter_id: str) -> None:
         self._remote[server_id].discard(adapter_id)
 
+    @_mirrored
     def evict_adapter(self, server_id: int, adapter_id: str) -> bool:
         eng = self.engines[server_id]
         if eng is None:
@@ -558,6 +666,7 @@ class EngineBackend:
         eng = self.engines[server_id]
         return {} if eng is None else dict(eng.adapter_ranks)
 
+    @_mirrored
     def add_server(self) -> int:
         sid = self.n_servers
         self.n_servers += 1
@@ -565,6 +674,7 @@ class EngineBackend:
         self._remote.append(set())
         return sid
 
+    @_mirrored
     def retire_server(self, server_id: int) -> None:
         eng = self.engines[server_id]
         if eng is not None and (eng.queue or eng.active):
@@ -574,9 +684,11 @@ class EngineBackend:
         self._remote[server_id].clear()
 
     # -- fault plane ----------------------------------------------------
+    @_mirrored
     def fail_server(self, server_id: int) -> None:
         self.failed.add(server_id)
 
+    @_mirrored
     def drain_failed(self, server_id: int) -> List[ServeRequest]:
         eng = self.engines[server_id]
         if eng is None:
@@ -588,12 +700,14 @@ class EngineBackend:
         self._remote[server_id].clear()
         return stranded
 
+    @_mirrored
     def restore_server(self, server_id: int) -> None:
         self.failed.discard(server_id)   # engine rebuilds on next load
 
     def server_alive(self, server_id: int) -> bool:
         return server_id not in self.failed
 
+    @_mirrored
     def cancel_request(self, req_id: int) -> Optional[ServeRequest]:
         for eng in self.engines:
             if eng is None:
@@ -604,6 +718,9 @@ class EngineBackend:
         return None
 
     def memory_profile(self) -> List[Dict[str, float]]:
+        """Each server's bank: its adapters, padding rank and bytes, as
+        this process's engine holds it (under a mesh, one rank's
+        co-sharded slice, on one rank's card)."""
         out = []
         for sid, eng in enumerate(self.engines):
             if eng is None:

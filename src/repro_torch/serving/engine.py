@@ -21,19 +21,30 @@ indices of co-batched slots. ``bank_mode`` selects the layout
 on the CPU. ``"einsum"`` selects the gather-einsum path.
 
 ``mesh`` (a ``launch.mesh.TensorParallel``, from ``make_engine_mesh``)
-turns on the tensor-parallel mode: this process is one rank of an SPMD
-group, every rank runs the same engine on the same requests, and the
-engine keeps the rank's slice of the weights, the cache and the
-co-sharded bank (``serving.sharding``), for every family; ``params``
-may be the rank's slice already (``models.model.init_params(tp=...)``).
-The bank is sharded again after every rebuild and install. Bank kernels
-at tp > 1: B3a/B3b (padded) and B4a/B4b (bucketed). Tokens are identical
-on every rank (the hidden state after each all-reduce is), and match the
-single-device engine's by token, not by bit: the all-reduce reorders the
-d-sums. The MoE family's prefill runs the reference's expert-parallel
-path, whose capacity drops tokens, so its tokens are the JAX mesh
-engine's rather than one device's. Not ported: data parallelism
-(ROADMAP A9).
+turns on the mesh-sharded mode over (dp, tp): this process is one rank
+of an SPMD group, every rank runs the same engine loop on the same
+requests, and the engine keeps the rank's slice of the weights, the
+cache and the co-sharded bank (``serving.sharding``), for every family;
+``params`` may be the rank's slice already (``models.model.init_params(
+tp=...)``). The bank is sharded again after every rebuild and install.
+Bank kernels at tp > 1: B3a/B3b (padded) and B4a/B4b (bucketed). Tokens
+are identical on every rank (the hidden state after each all-reduce
+is), and match the single-device engine's by token, not by bit: the
+all-reduce reorders the d-sums. The MoE family's prefill runs the
+reference's expert-parallel path, whose capacity drops tokens, so its
+tokens are the JAX mesh engine's rather than one device's.
+
+At dp > 1 the slot batch splits over the dp replicas where dp divides
+``max_batch`` (``sharding.slot_rows``; otherwise every replica runs
+every slot): a replica's cache holds its max_batch / dp slot rows and
+its decode steps run them, and one all-gather of the emitted tokens
+over the dp group a decode dispatch (one per k-block of
+``decode_steps``) gives every replica's scheduler every token, so the
+slots, queues, banks and page accounts stay the same on every rank.
+Every replica runs a prefill group's whole prefill and keeps its own
+slots' rows of the cache: the MoE's expert-parallel path then splits the
+group over dp as the JAX mesh's "data" axis does (``models.ffn``), and
+its capacity drops the reference's tokens.
 
 The VLM and audio families take a frontend at prefill: as the JAX engine
 does, a group of n rows gets fp32 zeros (n, M, d), M the config's
@@ -59,6 +70,7 @@ until a prefill overwrites it.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -66,13 +78,15 @@ import torch
 
 from repro_torch.core.request import Phase, ServeRequest
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import NO_DP
 from repro_torch.lora.adapter import Adapter, bank_layers
 from repro_torch.lora.bank import build_bank, rank_bucket
 from repro_torch.models import model as M
+from repro_torch.models.common import all_gather_
 
 from .metrics import MetricsCollector
 from .paging import UnifiedPagePool
-from .sharding import make_engine_sharding
+from .sharding import make_engine_sharding, slot_rows
 
 Request = ServeRequest
 
@@ -92,12 +106,20 @@ class ServingEngine:
         if lora_kernel not in ("einsum", "sgmv"):
             raise ValueError(f"unknown lora kernel {lora_kernel!r}")
         self.cfg = cfg
+        # the slot rows this dp replica runs, and the dp group that
+        # gathers its tokens where the batch splits (None: every slot here)
+        lo, hi = slot_rows(mesh, max_batch)
+        self._rows = slice(lo, hi)
+        self._dp = mesh.dp if hi - lo < max_batch else None
         # tensor-parallel mode; None (or tp = 1) is the single-device
-        # engine, exactly
+        # model, exactly; the model splits an expert-parallel prefill over
+        # dp only where the slot batch splits
         self.sharding = make_engine_sharding(mesh, cfg)
-        self.tp = None if self.sharding is None else mesh
+        self.tp = None
         if self.sharding is not None:
             params = self.sharding.shard_params(params)
+            self.tp = mesh if self._dp is not None else \
+                dataclasses.replace(mesh, dp=NO_DP)
         # duck-typed obs tracer: per-iteration spans stamped on the engine
         # clock, carrying the batch shape the cost-model drift meter reads
         self.tracer = tracer
@@ -131,7 +153,7 @@ class ServingEngine:
         # the cache is fp32 whatever the params' dtype, as in the JAX engine
         self.enc_len = (cfg.encoder.n_frames if cfg.encoder
                         else (cfg.n_frontend_tokens or None))
-        self.cache = M.init_cache(cfg, max_batch, max_len, torch.float32,
+        self.cache = M.init_cache(cfg, hi - lo, max_len, torch.float32,
                                   device=self.device, tp=self.tp,
                                   enc_len=self.enc_len)
 
@@ -161,7 +183,11 @@ class ServingEngine:
                for r in self.slots]
         self.slot_adapter = torch.tensor(idx, dtype=torch.int32,
                                          device=self.device)
-        self._slot_lora = self.lora_bank.lora_idx(self.slot_adapter)
+        self._slot_lora = self._rows_lora()
+
+    def _rows_lora(self):
+        """This replica's slot rows' (bucket, local) bank indices."""
+        return self.lora_bank.lora_idx(self.slot_adapter[self._rows])
 
     def load_adapters(self, adapter_ranks: Dict[str, int]) -> bool:
         """Add adapters to this server's bank. Returns True if the bank
@@ -232,7 +258,7 @@ class ServingEngine:
         for length, grp in groups.items():
             self._prefill_group(length, grp)
         # slot -> (bucket, local) bank indices once per admit pass
-        self._slot_lora = self.lora_bank.lora_idx(self.slot_adapter)
+        self._slot_lora = self._rows_lora()
 
     def _batch_shape_attrs(self, reqs, value) -> dict:
         """Span attrs describing a batch's rank shape: ``max_rank`` plus,
@@ -267,9 +293,9 @@ class ServingEngine:
         self.prefill_dispatches += 1
         firsts = logits.argmax(dim=-1).to(torch.int32)
         firsts_host = firsts.tolist()            # the group's one sync
-        slots = torch.tensor([slot for slot, _ in grp], dtype=torch.long,
-                             device=self.device)
-        self._merge_many(cache1, slots, length)
+        slot_ids = [slot for slot, _ in grp]
+        slots = torch.tensor(slot_ids, dtype=torch.long, device=self.device)
+        self._merge_many(cache1, slot_ids, length)
         self.slot_adapter[slots] = aidx_t
         self.last_token[slots] = firsts
         t = self._clock()
@@ -317,10 +343,20 @@ class ServingEngine:
                    for r in self.slots):
             self.page_pool.pin_adapter(req.adapter_id, False)
 
-    def _merge_many(self, cache1, slots, length: int) -> None:
+    def _merge_many(self, cache1, slot_ids, length: int) -> None:
         """Scatter n freshly prefilled rows (batch axis 1 everywhere but
-        "pos": KV, cross K/V and recurrent state alike) into their slots,
-        in place."""
+        "pos": KV, cross K/V and recurrent state alike) into their slots
+        ``slot_ids``, in place: the rows of this replica's slots only."""
+        lo, hi = self._rows.start, self._rows.stop
+        mine = [i for i, s in enumerate(slot_ids) if lo <= s < hi]
+        if not mine:
+            return
+        if len(mine) < len(slot_ids):
+            src = torch.tensor(mine, dtype=torch.long, device=self.device)
+            cache1 = {k: v if k == "pos" else v[:, src]
+                      for k, v in cache1.items()}
+        slots = torch.tensor([slot_ids[i] - lo for i in mine],
+                             dtype=torch.long, device=self.device)
         for k, v in self.cache.items():
             if k == "pos":
                 v[slots] = length
@@ -347,18 +383,26 @@ class ServingEngine:
                 self._page_out(req)
 
     def _decode_fn(self, tokens):
+        """One decode step of this replica's slot rows: their next tokens."""
         logits, self.cache = M.decode_step(
             self.cfg, self.params, self.cache, tokens, bank=self.bank,
             lora_idx=self._slot_lora, lora_kernel=self.lora_kernel,
             tp=self.tp)
         return logits.argmax(dim=-1).to(torch.int32)
 
+    def _gather_rows(self, toks):
+        """Every replica's slot rows' tokens side by side along the last
+        axis (one all-gather over dp); ``toks`` itself where every slot
+        runs here."""
+        return toks if self._dp is None else all_gather_(toks, self._dp)
+
     def _decode_once(self) -> None:
         if not any(s is not None for s in self.slots):
             return
         t0 = self._clock()
         active = [r for r in self.slots if r is not None]
-        self.last_token = self._decode_fn(self.last_token)
+        self.last_token = self._gather_rows(
+            self._decode_fn(self.last_token[self._rows]))
         self.decode_dispatches += 1
         nxt = self.last_token.tolist()          # the iteration's one sync
         now = self._clock()
@@ -392,9 +436,9 @@ class ServingEngine:
             left[slot] = max(1, min(req.max_new_tokens - len(req.output),
                                     self.max_len - len(req.prompt)
                                     - len(req.output)))
-        steps_left = torch.tensor(left, dtype=torch.int32,
+        steps_left = torch.tensor(left[self._rows], dtype=torch.int32,
                                   device=self.device)
-        tok = self.last_token
+        tok = self.last_token[self._rows]
         emitted = []
         for _ in range(k):
             nxt = self._decode_fn(tok)
@@ -402,9 +446,10 @@ class ServingEngine:
             tok = torch.where(active, nxt, tok)
             steps_left = steps_left - active.to(steps_left.dtype)
             emitted.append(tok)
-        self.last_token = tok
+        block = self._gather_rows(torch.stack(emitted))     # (k, max_batch)
+        self.last_token = block[-1]
         self.decode_dispatches += 1
-        toks = torch.stack(emitted).tolist()    # ONE sync per k tokens
+        toks = block.tolist()                   # ONE sync per k tokens
         now = self._clock()
         if self.tracer is not None:
             active_reqs = [r for r in self.slots if r is not None]

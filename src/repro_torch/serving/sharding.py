@@ -1,27 +1,28 @@
-"""Tensor-parallel serving: the sharding layer of the engine's ``mesh=``
-mode (the counterpart of the JAX package's ``serving/sharding.py`` with
-dp = 1).
+"""Mesh-sharded serving: the sharding layer of the engine's ``mesh=``
+mode (the counterpart of the JAX package's ``serving/sharding.py``).
 
 ``EngineSharding`` binds one rank's ``TensorParallel`` to an engine and
-owns every placement decision, for every family:
+owns every placement decision over "model" (tp), for every family:
 
 * base params — the JAX package's name lists (``models/common.py``
-  ``_COL``/``_ROW``/``_EXPERT``/``_VEC_COL``), as ``PARAM_SPLIT``:
-  column-parallel projections (``wq wk wv w1 w3 ws1 ws3``, MLA's ``w_uk
-  w_uv``, Mamba2's ``w_xz w_dt``, RWKV-6's ``w_r w_k w_v w_g wk_cm`` and
-  its decay ``wa2``) and their per-head vectors (the q/k/v biases,
-  ``dt_bias A_log D ln_y``, ``w0 u ln_x``) take the rank's heads or
-  channels; row-parallel ones (``wo w2 ws2 w_out w_o wv_cm``) the
-  matching rows; the routed experts (``we1 we2 we3``) the rank's E/tp
-  experts. Everything else is replicated: embed, the norms, ``lm_head``,
-  the router, MLA's ``w_dkv``/``ln_kv``, Mamba2's ``w_bc``, RWKV-6's
-  token-shift mixes and ``wa1``, the VLM's gates (a placement choice; no
-  number changes). Two column splits are not one contiguous range:
-  Mamba2's ``w_xz`` is ``[x | z]`` and a rank takes its heads' columns of
-  both halves; and where tp does not divide the kv heads, ``wk``/``wv``
-  (and ``bk``/``bv``) take the kv heads the rank's query heads read,
-  duplicated across ranks (the JAX ``_regroup_plan``;
-  ``models.attention.local_kv_heads``);
+  ``_COL``/``_ROW``/``_EXPERT``/``_VEC_COL``/``_EMBED``), as
+  ``PARAM_SPLIT``: column-parallel projections (``wq wk wv w1 w3 ws1
+  ws3``, MLA's ``w_uk w_uv``, Mamba2's ``w_xz w_dt``, RWKV-6's ``w_r w_k
+  w_v w_g wk_cm`` and its decay ``wa2``) and their per-head vectors (the
+  q/k/v biases, ``dt_bias A_log D ln_y``, ``w0 u ln_x``) take the rank's
+  heads or channels; row-parallel ones (``wo w2 ws2 w_out w_o wv_cm``)
+  the matching rows; the routed experts (``we1 we2 we3``) the rank's E/tp
+  experts; ``embed`` its V/tp rows and ``lm_head`` its V/tp columns (a
+  tied head reads the embedding's rows), replicated where tp does not
+  divide V, as the JAX ``fit_spec`` replicates a dim the mesh does not
+  divide. Everything else is replicated: the norms, the router, MLA's
+  ``w_dkv``/``ln_kv``, Mamba2's ``w_bc``, RWKV-6's token-shift mixes and
+  ``wa1``, the VLM's gates (a placement choice; no number changes). Two
+  column splits are not one contiguous range: Mamba2's ``w_xz`` is ``[x |
+  z]`` and a rank takes its heads' columns of both halves; and where tp
+  does not divide the kv heads, ``wk``/``wv`` (and ``bk``/``bv``) take
+  the kv heads the rank's query heads read, duplicated across ranks (the
+  JAX ``_regroup_plan``; ``models.attention.local_kv_heads``);
 * caches — the rank's heads: kv heads (regrouped where needed), cross
   K/V heads, Mamba2 and WKV heads; MLA's latent ``c``/``kr`` and the
   RWKV-6 token shifts whole (``models.model.init_cache(tp=...)``);
@@ -32,10 +33,16 @@ owns every placement decision, for every family:
   replicated ``w_dkv`` output: its B is split evenly and the delta
   all-gathered.
 
+Over "data" (dp) base weights and banks are replicated (the JAX
+``bank_spec`` splits over "model" only), and ``slot_rows`` is the rule
+of the slot batch: it splits over dp only where dp divides the engine's
+``max_batch``, as the JAX ``EngineSharding.batch_axes``; otherwise every
+dp replica runs every slot.
+
 Where the JAX package falls back to replicating a dim that the mesh
-does not divide (``fit_spec``), this one refuses the config: heads, kv
-heads that no regroup fits, d_ff, d_model, Mamba2/RWKV-6 heads or
-experts that tp does not divide.
+does not divide (``fit_spec``), this one refuses the config, V aside:
+heads, kv heads that no regroup fits, d_ff, d_model, Mamba2/RWKV-6 heads
+or experts that tp does not divide.
 """
 from __future__ import annotations
 
@@ -65,15 +72,30 @@ PARAM_SPLIT = {
     # RWKV-6
     "w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1, "w_o": 0, "w0": 0, "wa2": 1,
     "u": 0, "ln_x": 0, "wk_cm": 1, "wv_cm": 0,
+    # the vocabulary: rows of the embedding, columns of the head
+    "embed": 0, "lm_head": 1,
 }
+_VOCAB = ("embed", "lm_head")
 _KV = ("wk", "wv", "bk", "bv")           # kv-head columns (regrouped)
-_NEXT = "the next A9 slice"
 
 
 def _refuse(cfg, what, n, tp):
     raise ValueError(f"{cfg.name}: {what}={n} is not divisible by "
-                     f"tp={tp}; a layout that replicates it is {_NEXT} "
-                     "(ROADMAP queue A item 9)")
+                     f"tp={tp}; a layout that replicates it is not "
+                     "ported (ROADMAP C5)")
+
+
+def slot_rows(mesh, max_batch: int):
+    """The slot rows [lo, hi) that this rank's dp replica runs: its
+    max_batch / dp where dp divides ``max_batch``, every slot otherwise
+    (the JAX ``EngineSharding.batch_axes``: the batch shards over "data",
+    whose size is ``batch_shard_size``, only when divisible). ``mesh``
+    None is one device."""
+    n = 1 if mesh is None else mesh.dp.size
+    if n == 1 or max_batch % n:
+        return 0, max_batch
+    w = max_batch // n
+    return mesh.dp.rank * w, (mesh.dp.rank + 1) * w
 
 
 def _kv_columns(cfg, rank: int, size: int):
@@ -126,6 +148,15 @@ class EngineSharding:
         self.tp, self.cfg = tp, cfg
         # the kv-head columns of GQA and cross-attention (MLA has none)
         self._gqa = bool(cfg.n_heads) and cfg.mla is None
+        # the embedding and the head split only where tp divides V
+        self.vocab_split = cfg.vocab_size % n == 0
+
+    def axis(self, name: str):
+        """The axis a rank slices of parameter ``name``; None where it is
+        replicated."""
+        if name in _VOCAB and not self.vocab_split:
+            return None
+        return PARAM_SPLIT.get(name)
 
     # -- the split of one tensor ------------------------------------------
     def index(self, name: str, length: int, rank=None):
@@ -177,9 +208,10 @@ class EngineSharding:
         new = module.__class__.__new__(module.__class__)
         nn.Module.__init__(new)
         for name, p in module.named_parameters(recurse=False):
-            if name in PARAM_SPLIT:
-                p = nn.Parameter(self.split(p.detach(), PARAM_SPLIT[name],
-                                            name), requires_grad=False)
+            axis = self.axis(name)
+            if axis is not None:
+                p = nn.Parameter(self.split(p.detach(), axis, name),
+                                 requires_grad=False)
             new.register_parameter(name, p)
         for name, child in module.named_children():
             new.add_module(name, self.shard_module(child))

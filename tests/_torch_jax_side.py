@@ -96,7 +96,8 @@ def seeded_setup(ranks):
          for aid, r in ranks.items()}
     jw = JaxWeights(cfg, {aid: jax.tree.map(jnp.asarray, x)
                           for aid, x in w.items()})
-    tw = {aid: bridge.adapter_weights_from_numpy(x) for aid, x in w.items()}
+    tw = {aid: bridge.adapter_weights_from_numpy(
+        x, device="cpu") for aid, x in w.items()}
     return cfg, jp, tp, jw, tw
 
 

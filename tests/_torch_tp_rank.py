@@ -102,7 +102,7 @@ def rank_job(rank: int, tp: int, job_path, out_dir) -> None:
     for d in job["deltas"]:
         for name, y in _rank_delta(mesh, sharding, cfg, d).items():
             out["delta"][(d["mode"], d["kernel"], name)] = y
-    weights = {aid: bridge.adapter_weights_from_numpy(w)
+    weights = {aid: bridge.adapter_weights_from_numpy(w, device="cpu")
                for aid, w in job["weights"].items()}
     for case in job["cases"]:
         mode, kernel, k = case
@@ -234,12 +234,14 @@ def _layer_outputs(cfg, lp, mesh, job):
                                               tp=mesh),
                    y1=A.cross_attend(cfg, lp, t["x1"], k, v, tp=mesh))
     elif kind == "mamba2":
-        st = ssm.mamba2_state(cfg, t["x"].shape[0], tp=mesh)
+        st = ssm.mamba2_state(cfg, t["x"].shape[0], device="cpu",
+                               tp=mesh)
         y, s = ssm.mamba2_full(cfg, lp, t["x"], st, tp=mesh)
         y1, s1 = ssm.mamba2_step(cfg, lp, t["x1"], s, tp=mesh)
         out.update(y=y, s=s, y1=y1, s1=s1)
     elif kind == "rwkv6":
-        st = ssm.rwkv6_state(cfg, t["x"].shape[0], tp=mesh)
+        st = ssm.rwkv6_state(cfg, t["x"].shape[0], device="cpu",
+                              tp=mesh)
         y, s = ssm.rwkv6_time_mix(cfg, lp, t["x"], st, lora, tp=mesh)
         y1, s1 = ssm.rwkv6_time_mix(cfg, lp, t["x1"], s, lora, tp=mesh)
         yc, _ = ssm.rwkv6_channel_mix(cfg, lp, t["x"], st, tp=mesh)
@@ -276,7 +278,7 @@ def family_job(rank: int, tp: int, job_path, out_dir) -> None:
         cfg = get_smoke_config(arch)
         full[arch] = bridge.params_from_numpy(cfg, a["params"], device="cpu")
         params = EngineSharding(mesh, cfg).shard_params(full[arch])
-        weights = {aid: bridge.adapter_weights_from_numpy(w)
+        weights = {aid: bridge.adapter_weights_from_numpy(w, device="cpu")
                    for aid, w in a["weights"].items()}
         for mode, kernel in FAMILY_CASES:
             eng = ServingEngine(cfg, params, dict(FAMILY_RANKS),
@@ -319,3 +321,235 @@ def family_job(rank: int, tp: int, job_path, out_dir) -> None:
         out["layers"].append(_layer_outputs(cfg, lp, mesh, lj))
     with open(Path(out_dir) / f"family{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (``test_torch_dp.py``)
+# ---------------------------------------------------------------------------
+# (bank_mode, lora_kernel, decode_block, max_batch): 4 splits the slot
+# batch over dp = 2, 3 leaves it whole on every replica
+DP_CASES = [(mode, kernel, k, mb) for mode in ("padded", "bucketed")
+            for kernel in ("einsum", "sgmv") for k in (1, 4) for mb in (4, 3)]
+
+
+def serve_drops(engine, make_request, weights):
+    """The MoE capacity trace on ``engine`` (``FAMILY_RANKS``, max batch
+    4, every adapter's ``weights`` installed first): a group of 2
+    identical requests (16 copies of one token, one adapter), served until
+    drained, then a group of 3 of 12. Identical rows of one repeated token
+    route every position of a layer to the same top-k experts, so the
+    expert-parallel path's capacity decides which are dropped: at (dp,
+    tp) = (2, 2) dp splits the first group (8 tokens a shard, capacity 8:
+    none dropped; unsplit, 16 at capacity 12 drop 4) and not the second
+    (18 tokens a shard at capacity 14). Returns {id: tokens}."""
+    for aid, r in sorted(engine.adapter_ranks.items()):
+        engine.install_adapter(aid, r, weights[aid])
+    aids = sorted(FAMILY_RANKS)
+    for i in range(2):
+        engine.submit(make_request(i, aids[0], [7] * 16, 4))
+    engine.run_until_drained()
+    for i in range(3):
+        engine.submit(make_request(2 + i, aids[1], [11] * 12, 4))
+    engine.run_until_drained()
+    return {r.req_id: list(r.output) for r in engine.completed}
+
+
+DP_TRACES = {"lifecycle": lifecycle, "family": serve_family,
+             "drops": serve_drops}
+
+
+class EPBatches:
+    """While entered, counts ``moe_ffn_ep``'s calls by the rows they get
+    (a dp split shows as a call of B rows and one of B / dp inside it)
+    and the assignments its chunks' capacity drops, by those rows."""
+
+    def __init__(self):
+        from repro_torch.models import ffn
+        self.ffn, self.rows, self.drops = ffn, {}, {}
+
+    def __enter__(self):
+        self.orig = (self.ffn.moe_ffn_ep, self.ffn._ep_chunk)
+
+        def moe_ffn_ep(cfg, p, x, tp):
+            self.rows[x.shape[0]] = self.rows.get(x.shape[0], 0) + 1
+            return self.orig[0](cfg, p, x, tp)
+
+        def _ep_chunk(cfg, router, x, j, n):
+            out = self.orig[1](cfg, router, x, j, n)
+            dest, C = out[3], out[4]
+            dropped = int((dest >= cfg.moe.n_experts * C).sum())
+            self.drops[x.shape[0]] = self.drops.get(x.shape[0], 0) + dropped
+            return out
+        self.ffn.moe_ffn_ep, self.ffn._ep_chunk = moe_ffn_ep, _ep_chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.ffn.moe_ffn_ep, self.ffn._ep_chunk = self.orig
+
+
+def _vocab_case(cfg, mesh, seed=3):
+    """The vocab-parallel head against the replicated one on ``mesh``:
+    the rank's slice of a seeded model (``shard_params``), the same slice
+    with the whole ``embed`` and ``lm_head`` (replicated), and the slice
+    drawn directly (``init_params(tp=...)``). Returns the embedding's
+    rows, the head's columns (None if tied), whether the drawn slice is
+    the cut one, and the prefill's and 2 decode steps' logits of the
+    split and the replicated model."""
+    from repro_torch.models import model as M
+    full = M.init_params(cfg, seed, device="cpu")
+    sh = EngineSharding(mesh, cfg)
+    split = sh.shard_params(full)
+    repl = sh.shard_params(full)
+    repl.embed = full.embed
+    if not cfg.tie_embeddings:
+        repl.lm_head = full.lm_head
+    drawn = M.init_params(cfg, seed, device="cpu", tp=mesh)
+    same = all(torch.equal(a, b) for a, b in
+               zip(split.parameters(), drawn.parameters()))
+    g = torch.Generator().manual_seed(seed)
+    V = cfg.vocab_size
+    toks = torch.randint(0, V, (3, 8), generator=g)
+    toks[0, :2] = torch.tensor([0, V - 1])       # the first and last rows
+    steps = [torch.randint(0, V, (3,), generator=g) for _ in range(2)]
+    logits = {}
+    for name, params in (("split", split), ("repl", repl)):
+        lg, cache = M.prefill(cfg, params, toks, cache_len=10, tp=mesh)
+        seq = [_np(lg)]
+        for tok in steps:
+            lg, cache = M.decode_step(cfg, params, cache, tok, tp=mesh)
+            seq.append(_np(lg))
+        logits[name] = seq
+    head = None if cfg.tie_embeddings else tuple(split.lm_head.shape)
+    return {"embed": tuple(split.embed.shape), "lm_head": head,
+            "drawn_is_cut": same, **logits}
+
+
+def dp_job(rank: int, dp: int, tp: int, job_path, out_dir) -> None:
+    """One rank of ``test_torch_dp.py``'s (dp, tp) world. The job pickle
+    holds ``archs``: {arch: {"params" (the JAX param tree as numpy),
+    "weights" ({adapter: {target: {"A", "B"}}} numpy), "ranks" (the
+    engine's adapters), "trace" (a ``DP_TRACES`` key), "max_len",
+    "cases" [``DP_CASES`` entries]}} and ``vocab``: [(name, config
+    overrides)] checked at tp = the world's size. Writes
+    ``out_dir/dp{rank}.pkl``: ``coords`` (dp rank, tp rank), ``tp_sum``
+    (a tp all-reduce of ones), ``dp_gather`` (the dp group's global
+    ranks, gathered), ``engine`` {(arch, *case): tokens}, ``cache_rows``
+    {(arch, *case): the cache's slot rows}, ``ep_rows`` and ``ep_drops``
+    {(arch, *case): ``EPBatches.rows`` and ``.drops``} and ``vocab``
+    {name: ``_vocab_case``}."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models.common import all_gather_, all_reduce_
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    mesh = make_engine_mesh(dp, tp, device="cpu")
+    out = {"coords": (mesh.dp.rank, mesh.rank),
+           "tp_sum": float(all_reduce_(torch.ones(1), mesh)),
+           "dp_gather": all_gather_(torch.tensor([float(dist.get_rank())]),
+                                    mesh.dp).tolist(),
+           "engine": {}, "cache_rows": {}, "ep_rows": {}, "ep_drops": {},
+           "vocab": {}}
+    for arch, a in job["archs"].items():
+        cfg = get_smoke_config(arch)
+        params = bridge.params_from_numpy(cfg, a["params"], device="cpu")
+        weights = {aid: bridge.adapter_weights_from_numpy(w, device="cpu")
+                   for aid, w in a["weights"].items()}
+        for case in a["cases"]:
+            mode, kernel, k, mb = case
+            eng = ServingEngine(cfg, params, dict(a["ranks"]), max_batch=mb,
+                                max_len=a["max_len"], bank_mode=mode,
+                                lora_kernel=kernel, decode_block=k,
+                                mesh=mesh, device="cpu")
+            with EPBatches() as spy:
+                out["engine"][(arch, *case)] = DP_TRACES[a["trace"]](
+                    eng, lambda *r: Request(*r, arrival=0.0), weights)
+            out["cache_rows"][(arch, *case)] = eng.cache["pos"].shape[0]
+            out["ep_rows"][(arch, *case)] = spy.rows
+            out["ep_drops"][(arch, *case)] = spy.drops
+    vmesh = make_engine_mesh(1, dp * tp, device="cpu")
+    base = get_smoke_config("llama-7b-paper")
+    for name, over in job["vocab"]:
+        out["vocab"][name] = _vocab_case(dataclasses.replace(base, **over),
+                                         vmesh)
+    with open(Path(out_dir) / f"dp{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+# ---------------------------------------------------------------------------
+# the cluster facade over a mesh (``test_torch_mesh_cluster.py``)
+# ---------------------------------------------------------------------------
+def port_facade(backend, scenario):
+    """The port's ``LoRAServeCluster`` over ``backend`` for a scenario
+    dict (``adapters``, ``policy`` settings, ``kill``): the facade of
+    ``test_torch_cluster.py``'s port side."""
+    from repro_torch.cluster import NetworkModel
+    from repro_torch.faults import FaultPlan
+    from repro_torch.serving import LoRAServeCluster
+    kw = dict(policy="loraserve", rebalance_period=scenario["rebalance"],
+              seed=scenario["seed"], access_mode=scenario["access_mode"])
+    kill = scenario.get("kill")
+    if kill is not None:
+        kw.update(detector_window=0.3, durable_ssd=True,
+                  fault_plan=FaultPlan.kill_one(*kill))
+    return LoRAServeCluster(backend, scenario["adapters"],
+                            network=NetworkModel(), **kw)
+
+
+def scenario_backend(cfg, params, weights, scenario, mesh_shape=None):
+    """The seeded engine backend of a scenario: 2 servers, fp32, padded
+    (``launch.serve.SeededWeightsBackend``), on ``mesh_shape``."""
+    from repro_torch.launch.serve import SeededWeightsBackend
+    return SeededWeightsBackend(
+        cfg, params, 2, weights=weights, max_batch=scenario["max_batch"],
+        max_len=scenario["max_len"], seed=0, mesh_shape=mesh_shape,
+        device="cpu")
+
+
+def cluster_outcome(cluster, report, trace):
+    """What the mesh cluster test compares: routes, per-server counts,
+    tokens and the report's counters."""
+    return {"routed": list(cluster.routed),
+            "counts": list(report.per_server_counts),
+            "tokens": {r.req_id: list(r.output) for r in trace},
+            "completed": report.completed(),
+            "rebalances": report.rebalances,
+            "placements": report.placements,
+            "remote_reads": report.remote_reads,
+            "failures": report.server_failures,
+            "recoveries": report.recoveries,
+            "mesh_shape": report.mesh_shape,
+            "memory_profile": report.memory_profile}
+
+
+def mesh_cluster_job(rank: int, dp: int, tp: int, job_path, out_dir) -> None:
+    """One rank of a (dp, tp) world of ``test_torch_mesh_cluster.py``: the
+    job pickle holds ``params`` (the JAX param tree as numpy),
+    ``weights`` and ``scenarios`` [{"adapters", "trace", "dt", ...}].
+    For each scenario every rank builds the mesh's backend; rank 0 drives
+    the facade on the virtual clock (``launch.serve.drive``) and closes
+    the backend, the others follow it (``serve_follower``). Rank 0 writes
+    ``out_dir/cluster-{dp}x{tp}.pkl``: [``cluster_outcome``]."""
+    from repro_torch.launch.serve import drive
+    from repro_torch.serving.backend import serve_follower
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    cfg = get_smoke_config("llama-7b-paper")
+    params = bridge.params_from_numpy(cfg, job["params"], device="cpu")
+    weights = {aid: bridge.adapter_weights_from_numpy(w, device="cpu")
+               for aid, w in job["weights"].items()}
+    outs = []
+    for sc in job["scenarios"]:
+        backend = scenario_backend(cfg, params, weights, sc, (dp, tp))
+        if rank != 0:
+            serve_follower(backend)
+            continue
+        cluster = port_facade(backend, sc)
+        trace = sc["trace"]
+        report = drive(cluster, trace, sc["dt"])
+        backend.close()
+        outs.append(cluster_outcome(cluster, report, trace))
+    if rank == 0:
+        with open(Path(out_dir) / f"cluster-{dp}x{tp}.pkl", "wb") as f:
+            pickle.dump(outs, f)

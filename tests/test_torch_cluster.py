@@ -60,7 +60,8 @@ def setup():
                for t in cfg.lora.targets}
          for aid, r in RANKS.items()}
     jw = {aid: jax.tree.map(jnp.asarray, x) for aid, x in w.items()}
-    tw = {aid: bridge.adapter_weights_from_numpy(x) for aid, x in w.items()}
+    tw = {aid: bridge.adapter_weights_from_numpy(
+        x, device="cpu") for aid, x in w.items()}
     return cfg, jp, tp, jw, tw
 
 
@@ -245,13 +246,16 @@ def test_drain_completed_matches_jax(setup):
     assert sorted(sum(outs[1], [])) == [0, 1, 2]
 
 
-@pytest.mark.parametrize("kw, exc", [
-    ({"device": "cuda"}, RuntimeError),
-    ({"device": "cpu", "mesh_shape": (1, 2)}, NotImplementedError)])
-def test_engine_backend_refusals(setup, kw, exc, monkeypatch):
+@pytest.mark.parametrize("kw, exc, match", [
+    ({"device": "cuda"}, RuntimeError, "device='cpu'"),
+    # a mesh is served from inside a world of its ranks
+    # (test_torch_mesh_cluster.py); outside one it is refused
+    ({"device": "cpu", "mesh_shape": (1, 2)}, RuntimeError,
+     "launch.mesh.spawn")])
+def test_engine_backend_refusals(setup, kw, exc, match, monkeypatch):
     # "cuda" must raise even on a machine with a card: pretend it has none
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(exc):
+    with pytest.raises(exc, match=match):
         EngineBackend(setup[0], setup[2], 2, **kw)
 
 

@@ -78,7 +78,8 @@ def _serve(cfg, params, weights, *, jax_side, **kw):
     else:
         eng = ServingEngine(cfg, params, dict(ADAPTERS), max_batch=4,
                             max_len=16, device="cpu", **kw)
-        mk, conv = Request, bridge.adapter_weights_from_numpy
+        mk, conv = Request, lambda w: bridge.adapter_weights_from_numpy(
+            w, device="cpu")
     for aid, r in ADAPTERS.items():
         eng.install_adapter(aid, r, conv(weights[aid]))
     now = time.monotonic()
@@ -104,7 +105,7 @@ def test_dense_config_matches_jax(arch):
     tb = build_bank(cfg, ADAPTERS, 1, mode="bucketed", device="cpu")
     for aid, w in weights.items():
         jb = jb.set_adapter(aid, jax.tree.map(jnp.asarray, w))
-        tb.set_adapter(aid, bridge.adapter_weights_from_numpy(w))
+        tb.set_adapter(aid, bridge.adapter_weights_from_numpy(w, device="cpu"))
     toks = np.array([[5, 9, 2, 7, 1], [8, 8, 4, 6, 2], [3, 1, 4, 1, 5]],
                     np.int32)
     rows = np.array([0, 1, 2], np.int32)

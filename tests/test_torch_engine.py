@@ -46,7 +46,8 @@ def _install(eng, weights, ranks, jax_side):
     for aid, r in ranks.items():
         w = weights[aid]
         eng.install_adapter(aid, r, jax.tree.map(jnp.asarray, w) if jax_side
-                            else bridge.adapter_weights_from_numpy(w))
+                            else bridge.adapter_weights_from_numpy(
+                                w, device="cpu"))
 
 
 def _run(setup, trace, *, jax_side, max_len=24, max_batch=4, hook=None,

@@ -61,7 +61,8 @@ def test_merged_logits_match_jax(arch):
     cfg, jp, tp, weights = _setup(arch)
     w = weights["hot-r16"]
     jm = jax_merge_adapter(jp, _jax_adapter(w), cfg, scaling=0.5)
-    tm = merge_adapter(tp, bridge.adapter_weights_from_numpy(w), cfg,
+    tm = merge_adapter(tp, bridge.adapter_weights_from_numpy(
+        w, device="cpu"), cfg,
                        scaling=0.5)
     lj, _ = JM.prefill(cfg, jm, jnp.asarray(TOKS))
     lt, _ = TM.prefill(cfg, tm, _t(TOKS))
@@ -85,12 +86,13 @@ def test_merged_logits_match_the_lora_path(arch):
     ranks = {"hot-r16": 16, "x-r8": 8, "y-r32": 32}
     bank = build_bank(cfg, ranks, 1, mode="bucketed", device="cpu")
     for aid, w in {**weights, **others}.items():
-        bank.set_adapter(aid, bridge.adapter_weights_from_numpy(w))
+        bank.set_adapter(aid, bridge.adapter_weights_from_numpy(
+            w, device="cpu"))
     rows = torch.full((2,), bank.index("hot-r16"), dtype=torch.int32)
     lora, _ = TM.prefill(cfg, tp, _t(TOKS), bank=bank.data,
                          lora_idx=bank.lora_idx(rows), lora_kernel="sgmv")
     merged = merge_adapter(tp, bridge.adapter_weights_from_numpy(
-        weights["hot-r16"]), cfg)
+        weights["hot-r16"], device="cpu"), cfg)
     lm, _ = TM.prefill(cfg, merged, _t(TOKS))
     np.testing.assert_allclose(lm.numpy(), lora.numpy(), atol=2e-3)
 
@@ -98,7 +100,8 @@ def test_merged_logits_match_the_lora_path(arch):
 def test_merge_leaves_the_input_and_shares_the_rest():
     cfg, _, tp, weights = _setup("llama-7b-paper")
     before = {n: p.clone() for n, p in tp.named_parameters()}
-    adapter = bridge.adapter_weights_from_numpy(weights["hot-r16"])
+    adapter = bridge.adapter_weights_from_numpy(weights["hot-r16"],
+                                                device="cpu")
     del adapter["k"]                        # a target the adapter lacks
     merged = merge_adapter(tp, adapter, cfg)
     for n, p in tp.named_parameters():
@@ -123,4 +126,5 @@ def test_merge_refuses_what_the_reference_refuses(arch):
     tp = bridge.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
                                   device="cpu")
     with pytest.raises(ValueError, match="uniform-stack"):
-        merge_adapter(tp, bridge.adapter_weights_from_numpy(w), cfg)
+        merge_adapter(tp, bridge.adapter_weights_from_numpy(
+            w, device="cpu"), cfg)

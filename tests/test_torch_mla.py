@@ -206,7 +206,8 @@ def test_v_adapter_never_reaches_mla(kernel):
             a[target]["B"] = a[target]["B"] * boost
         tb = build_bank(cfg, ADAPTERS, 1, device="cpu")
         for aid, x in w.items():
-            tb.set_adapter(aid, bridge.adapter_weights_from_numpy(x))
+            tb.set_adapter(aid, bridge.adapter_weights_from_numpy(
+                x, device="cpu"))
         lt, _ = TM.prefill(cfg, tp, toks, bank=tb.data,
                            lora_idx=tb.lora_idx(rows), lora_kernel=kernel)
         logits[(target, boost)] = lt.numpy()

@@ -247,7 +247,8 @@ def test_model_logits_allclose_across_modes(setup, kernel):
     for mode in ("padded", "bucketed"):
         bank = build_bank(cfg, ADAPTERS, 1, mode=mode, device="cpu")
         for aid, w in weights.items():
-            bank.set_adapter(aid, bridge.adapter_weights_from_numpy(w))
+            bank.set_adapter(aid, bridge.adapter_weights_from_numpy(
+                w, device="cpu"))
         banks[mode] = bank
     toks = torch.arange(1, 7)[None, :].repeat(3, 1)
     gi = torch.tensor([0, 1, 2], dtype=torch.int32)
@@ -268,7 +269,8 @@ def test_lora_cb_sgmv_kernel_matches_einsum(setup, mode):
     cfg, _, tp = setup
     bank = build_bank(cfg, ADAPTERS, 1, mode=mode, device="cpu")
     for aid, w in _nonzero_weights(cfg, ADAPTERS, 7).items():
-        bank.set_adapter(aid, bridge.adapter_weights_from_numpy(w))
+        bank.set_adapter(aid, bridge.adapter_weights_from_numpy(
+            w, device="cpu"))
     toks = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])
     idx = bank.lora_idx(torch.tensor([0, 1], dtype=torch.int32))
     le, ce = TM.prefill(cfg, tp, toks, bank=bank.data, lora_idx=idx,

@@ -260,7 +260,8 @@ def _serve(setup, weights, *, jax_side, **kw):
     else:
         eng = ServingEngine(cfg, tp, dict(ADAPTERS), max_batch=4,
                             max_len=20, device="cpu", **kw)
-        mk, conv = Request, bridge.adapter_weights_from_numpy
+        mk, conv = Request, lambda w: bridge.adapter_weights_from_numpy(
+            w, device="cpu")
     for aid, r in ADAPTERS.items():
         eng.install_adapter(aid, r, conv(weights[aid]))
     now = time.monotonic()

@@ -63,7 +63,8 @@ def _run(arch, *, jax_side, pool=True, cancel=None):
         pp = UnifiedPagePool(**POOL) if pool else None
         eng = ServingEngine(cfg, tp, dict(ADAPTERS), max_batch=4, max_len=20,
                             bank_mode="bucketed", device="cpu", page_pool=pp)
-        mk, conv = Request, bridge.adapter_weights_from_numpy
+        mk, conv = Request, lambda w: bridge.adapter_weights_from_numpy(
+            w, device="cpu")
     for aid, r in ADAPTERS.items():
         eng.install_adapter(aid, r, conv(weights[aid]))
     rng = np.random.default_rng(2)

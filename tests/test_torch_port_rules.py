@@ -289,3 +289,51 @@ def test_control_plane_copies_give_the_originals_outputs(seed):
     assert _placement_case(tcore, seed) == _placement_case(jcore, seed)
     assert _routing_case(tcore, seed) == _routing_case(jcore, seed)
     assert _pool_case(tcore, tnet, seed) == _pool_case(jcore, jnet, seed)
+
+
+def _device_defaults():
+    """(module, function, the default of its ``device`` parameter, or None
+    where the caller must pass one) of every public function of the
+    port with a ``device`` parameter: module-level functions and the
+    methods (``__init__`` among them) of module-level classes, neither
+    named with a leading underscore."""
+    out = []
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        defs = [(n, n.name) for n in tree.body
+                if isinstance(n, ast.FunctionDef)]
+        for c in tree.body:
+            if isinstance(c, ast.ClassDef) and not c.name.startswith("_"):
+                defs += [(n, f"{c.name}.{n.name}") for n in c.body
+                         if isinstance(n, ast.FunctionDef)
+                         and (n.name == "__init__"
+                              or not n.name.startswith("_"))]
+        for fn, name in defs:
+            if name.split(".")[-1].startswith("_") and \
+                    not name.endswith("__init__"):
+                continue
+            a = fn.args
+            pos = a.posonlyargs + a.args
+            pairs = list(zip(pos[len(pos) - len(a.defaults):], a.defaults))
+            pairs += list(zip(a.kwonlyargs, a.kw_defaults))
+            pairs += [(x, None) for x in pos[:len(pos) - len(a.defaults)]]
+            for arg, default in pairs:
+                if arg.arg == "device":
+                    out.append((str(path.relative_to(ROOT)), name,
+                                None if default is None
+                                else ast.literal_eval(default)))
+    return out
+
+
+def test_every_device_parameter_defaults_to_the_card():
+    """The port's device rule (``repro_torch/device.py``): an entry point
+    runs on the card unless its caller asks for the CPU, so every public
+    function that takes a ``device`` defaults to ``"cuda"`` (or makes the
+    caller pass one); none defaults to the CPU."""
+    found = _device_defaults()
+    names = {name for _, name, _ in found}
+    assert {"init_params", "init_cache", "mamba2_state", "rwkv6_state",
+            "ServingEngine.__init__", "EngineBackend.__init__",
+            "make_engine_mesh", "build_bank"} <= names, names
+    bad = [f for f in found if f[2] not in (None, "cuda")]
+    assert not bad, bad

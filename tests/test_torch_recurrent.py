@@ -68,7 +68,7 @@ def _banks(cfg, weights, mode):
     tb = build_bank(cfg, ADAPTERS, 1, mode=mode, n_layers=L, device="cpu")
     for aid, w in weights.items():
         jb = jb.set_adapter(aid, jax.tree.map(jnp.asarray, w))
-        tb.set_adapter(aid, bridge.adapter_weights_from_numpy(w))
+        tb.set_adapter(aid, bridge.adapter_weights_from_numpy(w, device="cpu"))
     return jb, tb
 
 
@@ -142,7 +142,8 @@ def _serve(cfg, params, weights, *, jax_side, **kw):
     else:
         eng = ServingEngine(cfg, params, dict(ADAPTERS), max_batch=4,
                             max_len=16, device="cpu", **kw)
-        mk, conv = Request, bridge.adapter_weights_from_numpy
+        mk, conv = Request, lambda w: bridge.adapter_weights_from_numpy(
+            w, device="cpu")
     for aid, r in ADAPTERS.items():
         eng.install_adapter(aid, r, conv(weights[aid]))
     reqs = [mk(i, aid, p, n, arrival=0.0)

@@ -17,8 +17,8 @@ weights and nonzero-B banks:
 * every rank emits the same tokens, the ranks' param slices put the full
   module back together, and a tp engine gives a peer full-width adapter
   weights;
-* the layout refuses dp > 1, a missing process group and an indivisible
-  config, and builds a rank's layout of the recurrent, VLM and audio
+* the layout refuses a mesh outside a world or of no ranks, a missing
+  process group and an indivisible config, and builds a rank's layout of the recurrent, VLM and audio
   families (``test_torch_tp_families.py`` serves them); the launcher
   serves with ``--mesh 1,2 --backend gloo``.
 
@@ -185,11 +185,12 @@ def test_ranks_agree_and_slices_reassemble(setup, ranks):
 
 def test_layout_refusals(monkeypatch):
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="dp"):
+    # dp > 1 is served (test_torch_dp.py); outside a world it is refused
+    with pytest.raises(RuntimeError, match="launch.mesh.spawn"):
         make_engine_mesh(2, 2, device="cpu")
     monkeypatch.setattr("sys.argv", ["serve", "--config", "smoke",
-                                     "--device", "cpu", "--mesh", "2,2"])
-    with pytest.raises(NotImplementedError, match="dp"):
+                                     "--device", "cpu", "--mesh", "0,2"])
+    with pytest.raises(ValueError, match="positive"):
         serve.main()
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="process group"):
