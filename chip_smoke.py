@@ -168,16 +168,19 @@ Phases (any failure raises; the script then exits non-zero):
                held against ``flash_mha_plain`` and timed beside
                ``scaled_dot_product_attention`` on the 1000-token group.
                Each run logs TTFT, TBT, tok/s and peak memory; the
-               kernels line adds its launches.
- 11. recurrent — after phase 10, the recurrent families at full width
-               and depth, bf16 weights from a seed, fp32 caches, on phase
-               2's trace, padded and bucketed, decode blocks 1 and 4: (a)
-               zamba2-7b (81 Mamba2 blocks, d 3584, one shared MHA block
-               32 x 112 applied 14 times, whose one-layer bank serves
-               every application): the same tokens in every run, B1/B2
-               4 x 14 times a model pass and B5 14 times a prefill group;
-               (b) rwkv6-7b (32 layers, d 4096): the same, B1/B2 4 x 32
-               times a model pass, B5 never. For each, the first prefill
+               kernels line adds its launches. The cluster launchers here
+               and in phases 11, 12 and 14 serve ``LAUNCHER_TRACE``: 4
+               requests over 1 s, 4 new tokens each.
+ 11. recurrent — after phase 10, the recurrent families at full width,
+               bf16 weights from a seed, fp32 caches, on phase 2's trace,
+               padded and bucketed, decode blocks 1 and 4: (a) zamba2-7b
+               at 24 of its 81 Mamba2 blocks (``RECURRENT_LAYERS``; d
+               3584, one shared MHA block 32 x 112 applied 4 times, whose
+               one-layer bank serves every application): the same tokens
+               in every run, B1/B2 4 x 4 times a model pass and B5 4
+               times a prefill group; (b) rwkv6-7b at 8 of its 32 layers
+               (d 4096): the same, B1/B2 4 x 8 times a model pass, B5
+               never. For each, the first prefill
                group's bf16 logits equal bit for bit across the banks and
                are held within 5e-2 of the largest logit of an fp32 einsum
                run on the same weights (upcast in place) in which every
@@ -191,13 +194,15 @@ Phases (any failure raises; the script then exits non-zero):
                identities of phase 10 (b); B5 at head dim 112 on zamba2's
                2 x 1000 group against ``flash_mha_plain``, timed beside
                ``scaled_dot_product_attention``. (d) ``LoRAServeCluster``
-               over 2 zamba2 engines with a ``UnifiedPagePool`` each
-               (phase 8's virtual-clock drive, bucketed): tokens equal the
+               over 2 zamba2 engines at 12 layers with a
+               ``UnifiedPagePool`` each (phase 8's virtual-clock drive,
+               bucketed): tokens equal the
                drive without pools, every pool's invariant holds after the
                drain, pages by kind printed; then ``python -m
                repro_torch.launch.serve --arch rwkv6-7b --config full
-               --servers 2 --bank-mode bucketed --decode-block 4`` exits 0
-               with ``cluster drained OK``. (e) stablelm-1.6b at full
+               --servers 2 --bank-mode bucketed --decode-block 4`` (all 32
+               layers) exits 0 with ``cluster drained OK``. (e)
+               stablelm-1.6b at full
                width: one adapter merged into the bf16 weights
                (``merge_adapter``), the first group's logits within 5e-2 of
                the SGMV path's on a bank of that adapter alone. Each run
@@ -244,14 +249,14 @@ Phases (any failure raises; the script then exits non-zero):
  13. tpfam   — after phase 12, every family at tp = 2: two ranks on the
                one card over gloo, as phase 6 (spawned once; each rank
                draws its slice of the weights block by block,
-               ``init_params(tp=...)``): deepseek-v2-lite-16b at full
-               width and depth (the expert-parallel MoE at prefill, its
-               all-to-all and all-gather; MLA split by head; the drop-free
-               MoE at decode), llama4-scout-17b-a16e at full width and 8
-               layers, zamba2-7b and rwkv6-7b at full width and depth,
-               seamless-m4t-large-v2 at full width and depth and
-               llama-3.2-vision-90b at full width and 10 layers (its gates
-               set nonzero), bf16 weights from a seed, fp32 caches,
+               ``init_params(tp=...)``), every family at full width and
+               ``TP_FAMILIES``'s depth: deepseek-v2-lite-16b at 6 layers
+               (the expert-parallel MoE at prefill, its all-to-all and
+               all-gather; MLA split by head; the drop-free MoE at
+               decode), llama4-scout-17b-a16e at 8, zamba2-7b at 12 (two
+               shared-block applications), rwkv6-7b at 8,
+               seamless-m4t-large-v2 at 6 encoder and 6 decoder layers
+               and llama-3.2-vision-90b at 10 (its gates set nonzero), bf16 weights from a seed, fp32 caches,
                phase 6's trace (8 requests over its 5 adapters, prompts 64
                and 128, 16 new tokens, decode_block 4, max batch 8) in
                both bank modes. Each family: B3a/B3b (padded) or B4a/B4b
@@ -274,11 +279,11 @@ Phases (any failure raises; the script then exits non-zero):
                fp32, timed, bounded, with the SGMV yardsticks; the
                collectives' ms per call (all-reduce, and the MoE's
                all-to-all and all-gather) and rank 0's TTFT, TBT and peak
-               memory logged; each rank's peaks beside those of a
-               replicated embed and ``lm_head`` (``REPLICATED_PEAKS``).
+               memory logged; each rank's peaks with the vocab-parallel
+               embed and ``lm_head``.
  14. dp      — after phase 13, data parallelism: llama-7b-paper at full
-               width and depth (bf16 weights from phase 2's seed, each
-               rank drawing its slice), phase 2's trace (8 requests,
+               width and 8 of its 32 layers (``DP_LAYERS``; bf16 weights
+               from phase 2's seed, each rank drawing its slice), phase 2's trace (8 requests,
                prompts 4 x 64, 2 x 128 and 2 x 1000, 16 new tokens, max
                batch 8) padded and bucketed, decode blocks 1 and 4, as
                gloo ranks on the one card: (a) (dp, tp) = (2, 1), two
@@ -292,13 +297,45 @@ Phases (any failure raises; the script then exits non-zero):
                tokens and logits bit for bit; phase 5's fp32 2-layer
                trace at (dp, tp) emits phase 5's tokens, its prefill
                logits within 1e-3 (the distance printed); the bf16 tokens
-               against phase 2's dp = 1 tokens printed, not asserted;
+               against dp = 1's on the same 8-layer model printed, not
+               asserted;
                each rank's peak memory and rank 0's TTFT and TBT logged
                beside nvidia-smi's line. (c) ``python -m
                repro_torch.launch.serve --config full --servers 2 --mesh
                1,2 --backend gloo`` exits 0 with every request finished,
                the report on ``mesh=(1, 2)`` and ``cluster drained OK``.
                The kernels line adds (a)'s and (b)'s launches.
+ 15. train   — after phase 14, training (``repro_torch.training``;
+               autograd over the plain path, ``models.model.forward``: no
+               kernel has a backward, and every kernel wrapper refuses an
+               input that requires grad). (a) ``repro_torch.launch.train``
+               through its ``main`` in this process: internlm2-1.8b at
+               full width and depth (24 layers, d 2048, GQA 16/8, V
+               92 544), fp32, 10 full-parameter AdamW steps of 8 x 128 on
+               the synthetic pipeline: every loss finite, every grad_norm
+               > 0, each printed lr equal to ``lr_schedule``'s at the
+               printed precision; step ms, tok/s and peak memory. (b) One
+               fp32 step of the same model at 2 layers, from the same
+               weights and a 4 x 128 batch, on the card and on the CPU
+               path the tests hold against JAX: loss, grad_norm, every
+               updated leaf and both moments within 1e-4 of each leaf's
+               largest value; every wq, wk and wv has a nonzero gradient
+               on the card. (c) llama-7b-paper at full width and depth:
+               a bf16 base, frozen (a per-leaf digest equal after), and
+               an fp32 rank-16 adapter on q/k/v/o, 10
+               ``make_lora_train_step`` steps of 8 x 128 (step 1 gives
+               every B a gradient and every A none); the tuned adapter
+               saved (``save_checkpoint``), reloaded and served beside
+               phase 2's seeded adapters on phase 2's trace plus two
+               64-token requests of its own, padded and bucketed, decode
+               blocks 1 and 4 (B1/B2 and B5 counted as phase 2 counts
+               them; the same tokens in every run; the first group's
+               logits padded == bucketed bit for bit); its rows'
+               first-prefill logits within 5e-2 of the largest logit of
+               the einsum ``forward`` with the same adapter; B1 and B2 on
+               the engine's decode calls, with the trained B in the bank,
+               against their plain versions. The kernels line adds (c)'s
+               launches.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
@@ -308,6 +345,7 @@ import dataclasses
 import gc
 import http.client
 import json
+import math
 import os
 import random
 import select
@@ -990,7 +1028,7 @@ def phase_engine(dev):
         del eng
     assert tp_ref["padded"][0] == tp_ref["bucketed"][0]
     assert torch.equal(tp_ref["padded"][1], tp_ref["bucketed"][1])
-    return cfg, launches, rec.calls, banks, tp_ref, params, einsum, first
+    return cfg, launches, rec.calls, banks, tp_ref, params, einsum
 
 
 def _noise_floor(cfg, params, dev, tp_ref, einsum):
@@ -1993,6 +2031,9 @@ def phase_gateway(dev, cfg, params, smi):
 DEEPSEEK = "deepseek-v2-lite-16b"
 LLAMA4 = "llama4-scout-17b-a16e"
 LLAMA4_LAYERS = 8                     # 48 layers need 215 GB in bf16
+# the cluster launchers' trace (phases 10, 11, 12, 14): 4 requests arriving
+# over 1 s, 4 new tokens each (the launcher's defaults: 8, 6 s, 16)
+LAUNCHER_TRACE = ["--requests", "4", "--duration", "1", "--max-new", "4"]
 STABLELM = "stablelm-1.6b"
 
 
@@ -2230,14 +2271,15 @@ def _moe_llama4(dev, smi, results):
 
 
 def _moe_launcher(arch=DEEPSEEK, tag="moe"):
-    """Phase 10 (d), 11 (d): the serve launcher at ``arch``'s full width
-    with 2 servers, as a subprocess: exit 0, ``cluster drained OK``."""
+    """Phase 10 (d), 11 (d), 12 (d): the serve launcher at ``arch``'s full
+    width and depth with 2 servers, as a subprocess, on a short trace
+    (``LAUNCHER_TRACE``): exit 0, ``cluster drained OK``."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     args = ["repro_torch.launch.serve", "--arch", arch, "--config",
             "full", "--servers", "2", "--bank-mode", "bucketed",
-            "--decode-block", "4"]
+            "--decode-block", "4", *LAUNCHER_TRACE]
     t0 = time.monotonic()
     proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
                           capture_output=True, text=True, timeout=600)
@@ -2301,6 +2343,11 @@ def phase_moe(dev, smi):
 # ---------------------------------------------------------------------------
 ZAMBA2 = "zamba2-7b"
 RWKV6 = "rwkv6-7b"
+# phase 11's depths, full width: zamba2 4 of its 14 shared-block
+# applications (6 Mamba2 layers each) and 2 for the pooled servers, rwkv6
+# 8 of 32 layers (a full-depth run is the launcher's, phase 11 (d))
+RECURRENT_LAYERS = {ZAMBA2: 24, RWKV6: 8}
+POOL_LAYERS = 12
 
 
 class LayerReplay:
@@ -2382,7 +2429,8 @@ def _recurrent(dev, smi, results, arch):
     head dim 112 on the 2 x 1000 group's call. Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import n_attn_applications
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=RECURRENT_LAYERS[arch])
     params = _init_model(cfg, dev, tag="recurrent")
     trace, ranks, weights = _serve_trace(cfg, 8, dev)
     rec = MainPathCalls(widths=True)
@@ -2461,7 +2509,7 @@ def _recurrent_pool(dev, smi):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import adapter_weights, cluster_adapters
     from repro_torch.serving import UnifiedPagePool
-    cfg = get_config(ZAMBA2)
+    cfg = dataclasses.replace(get_config(ZAMBA2), n_layers=POOL_LAYERS)
     params = _init_model(cfg, dev, tag="pool")
     ranks = {a.adapter_id: a.rank for a in cluster_adapters(8)}
     weights = adapter_weights(cfg, ranks, dtype=torch.bfloat16, device=dev,
@@ -2811,26 +2859,27 @@ def phase_encdec_vlm(dev, smi):
 # phase 13: every family at tp = 2
 # ---------------------------------------------------------------------------
 ZAMBA, RWKV = "zamba2-7b", "rwkv6-7b"
-# arch -> the layers phase 13 serves at full width (None: all)
-TP_FAMILIES = {DEEPSEEK: None, LLAMA4: LLAMA4_LAYERS, ZAMBA: None,
-               RWKV: None, SEAMLESS: None, VISION: VISION_LAYERS}
+# arch -> the layers phase 13 serves at full width (seamless: its encoder's
+# too); phases 10-12 serve every family at full depth (llama4 and the VLM
+# cut as there), the launchers of 10 (d), 11 (d), 12 (d) at tp = 1
+TP_FAMILIES = {DEEPSEEK: 6, LLAMA4: LLAMA4_LAYERS, ZAMBA: 12, RWKV: 8,
+               SEAMLESS: 6, VISION: VISION_LAYERS}
 _SPLIT = {"padded": ("B3a", "B3b"), "bucketed": ("B4a", "B4b")}
 
 
 def _family_cfg(arch, fp32=False):
     """Phase 13's config of ``arch``: full width, at ``TP_FAMILIES``'s
     depth; with ``fp32``, the parity's 2 layers (the VLM one period of 5,
-    which holds its cross block; seamless 2 encoder layers too)."""
+    which holds its cross block); seamless's encoder as deep as its
+    decoder."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if not fp32:
-        n = TP_FAMILIES[arch]
-        return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
-    cfg = dataclasses.replace(cfg, n_layers=cfg.cross_attn_every
-                              if cfg.family == "vlm" else 2)
+    n = TP_FAMILIES[arch] if not fp32 else (
+        cfg.cross_attn_every if cfg.family == "vlm" else 2)
+    cfg = dataclasses.replace(cfg, n_layers=n)
     if cfg.encoder is not None:
         cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
-            cfg.encoder, n_layers=2))
+            cfg.encoder, n_layers=n))
     return cfg
 
 
@@ -3136,8 +3185,8 @@ def _family_checks(arch, outs, ref, smi):
         f"rank {r} " + ", ".join(f"{m} {o[arch]['bf16'][m]['peak_gb']:.2f}"
                                  for m in ("padded", "bucketed"))
         for r, o in enumerate(outs))
-    log(f"{tag} peak GB a rank, vocab-parallel embed and lm_head: {peaks}; "
-        f"both replicated: {REPLICATED_PEAKS[arch]} | {smi}")
+    log(f"{tag} peak GB a rank, vocab-parallel embed and lm_head: {peaks} "
+        f"| {smi}")
     o = outs[0][arch]
     pad, bkt = o["bf16"]["padded"], o["bf16"]["bucketed"]
     assert pad["tokens"] == bkt["tokens"], (arch, "modes' tokens differ")
@@ -3245,18 +3294,32 @@ def phase_tp_families(dev, smi):
 # phase 14: data parallelism and the cluster on a mesh
 # ---------------------------------------------------------------------------
 DP = 2
-# phase 13's peak GB a rank (rank 0 and 1, padded and bucketed) with embed
-# and lm_head replicated: the whole script's run on an NVIDIA H100 80GB HBM3
-# at 700 W before they were split (PERF.md section 6)
-REPLICATED_PEAKS = {DEEPSEEK: "18.00-18.14", LLAMA4: "26.23-26.32",
-                    ZAMBA: "8.83-8.84", RWKV: "9.67-11.05",
-                    SEAMLESS: "5.30-5.37", VISION: "17.82-18.02"}
+DP_LAYERS = 8                         # phase 14's depth, full width
+def _dp_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama-7b-paper"),
+                               n_layers=DP_LAYERS)
+
+
+def _dp1_tokens(dev):
+    """Phase 2's trace at dp = 1 on phase 14's model (padded, decode block
+    1): the bf16 tokens the replicas' tokens are printed against."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    cfg = _dp_cfg()
+    params = M.init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    trace, _, weights = _serve_trace(cfg, 8, dev)
+    _, reqs, _ = serve(cfg, params, trace, weights=weights,
+                       bank_mode="padded", lora_kernel="sgmv", max_batch=8,
+                       device=dev)
+    return [r.output for r in reqs]
 
 
 def _dp_rank(rank, dp, tp, out_dir):
     """One rank of phase 14 at (dp, tp), spawned with a default gloo group:
-    phase 2's trace on llama-7b-paper at full width and depth (bf16
-    weights from phase 2's seed, the rank's slice drawn block by block),
+    phase 2's trace on llama-7b-paper at full width and ``DP_LAYERS``
+    layers (bf16 weights from phase 2's seed, the rank's slice drawn
+    block by block),
     padded and bucketed, decode blocks 1 and 4, then phase 5's fp32
     2-layer trace. Writes ``dp-rank{rank}.pt``; rank 0 also
     ``dp-calls.pt``, copies of its bf16 calls of every kernel of the
@@ -3269,7 +3332,7 @@ def _dp_rank(rank, dp, tp, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_engine_mesh(dp, tp, device="cuda")
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_config("llama-7b-paper")
+    cfg = _dp_cfg()
     t0 = time.monotonic()
     params = M.init_params(cfg, 0, dtype=torch.bfloat16, device=dev,
                            tp=mesh)
@@ -3376,7 +3439,7 @@ def _dp_checks(cfg, dp, tp, outs, fp32_ref, dp1_tokens, smi):
     same = sum(a == b for a, b in zip(first, dp1_tokens))
     agree = sum(x == y for a, b in zip(first, dp1_tokens)
                 for x, y in zip(a, b))
-    log(f"{tag} bf16 full depth vs phase 2's dp = 1 tokens (printed, not "
+    log(f"{tag} bf16 vs dp = 1's tokens on the same model (printed, not "
         f"asserted): {same}/8 requests and {agree}/128 tokens equal")
     fp32_tokens, fp32_logits = fp32_ref
     for mode in ("padded", "bucketed"):
@@ -3419,8 +3482,7 @@ def _dp_launcher(smi):
                + os.environ.get("PYTHONPATH", ""))
     args = ["repro_torch.launch.serve", "--config", "full", "--servers",
             "2", "--mesh", "1,2", "--backend", "gloo", "--bank-mode",
-            "bucketed", "--decode-block", "4", "--requests", "8",
-            "--duration", "2"]
+            "bucketed", "--decode-block", "4", *LAUNCHER_TRACE]
     t0 = time.monotonic()
     proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -3428,22 +3490,23 @@ def _dp_launcher(smi):
     assert proc.returncode == 0, (proc.returncode, proc.stdout,
                                   proc.stderr[-4000:])
     assert lines and lines[-1] == "cluster drained OK", proc.stdout
-    assert "mesh=(1, 2)" in proc.stdout and "finished=8/8" in proc.stdout, \
+    assert "mesh=(1, 2)" in proc.stdout and "finished=4/4" in proc.stdout, \
         proc.stdout
     assert proc.stdout.count("finished=") == 1, proc.stdout
     log(f"dp launcher python -m {' '.join(args)} | {smi}: exit 0 in "
         f"{time.monotonic() - t0:.1f}s; it printed: {' | '.join(lines)}")
 
 
-def phase_dp(dev, smi, fp32_ref, dp1_tokens):
+def phase_dp(dev, smi, fp32_ref):
     """Phase 14: (a) dp = 2, tp = 1 and (b) dp = 2, tp = 2 as gloo ranks on
     the card, each world spawned, checked and gone before the next, its
     kernels checked on rank 0's decode calls; (c) the cluster launcher on
     a (1, 2) mesh. Returns (rank 0's launches of (a) and (b)'s main path,
     the kernels' results at a replica's rows)."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn
-    cfg = get_config("llama-7b-paper")
+    cfg = _dp_cfg()
+    dp1_tokens = _dp1_tokens(dev)
+    _free()
     launches, results = {kid: 0 for kid in KERNELS}, {}
     for dp, tp in ((DP, 1), (DP, 2)):
         t0 = time.monotonic()
@@ -3468,6 +3531,258 @@ def phase_dp(dev, smi, fp32_ref, dp1_tokens):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "10", "--batch", "8",
+              "--seq", "128", "--log-every", "1"]
+CPU_BATCH = 4                         # (b)'s rows: the CPU's share of time
+LORA_RANK = 16
+LORA_STEPS = 10
+TUNED = f"tuned-r{LORA_RANK}"
+
+
+def _step_times(log_):
+    """Median seconds a step over steps 2.. of a training log (step 1
+    holds the first calls' set-up)."""
+    s = [m["seconds"] for m in log_]
+    return statistics.median(b - a for a, b in zip(s, s[1:]))
+
+
+def _train_full(dev, smi):
+    """(a) ``python -m repro_torch.launch.train`` at internlm2-1.8b full
+    width and depth, fp32, through its ``main`` in this process."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    from repro_torch.training import lr_schedule
+    torch.cuda.reset_peak_memory_stats(dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        hist = train.main(TRAIN_ARGV)
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = buf.getvalue().splitlines()
+    for line in out:
+        log(f"train (a) | {line}")
+    steps = [ln for ln in out if ln.startswith("step")]
+    assert len(hist) == len(steps) == 10, (len(hist), len(steps))
+    args = train.parse_args(TRAIN_ARGV)
+    opt = train.opt_config(args)
+    for m, line in zip(hist, steps):
+        assert math.isfinite(m["loss"]) and m["grad_norm"] > 0, m
+        lr = float(lr_schedule(opt, torch.tensor(m["step"])))
+        assert f"lr={lr:.2e} " in line, (line, lr)
+    step_s = _step_times(hist)
+    b, sq = args.batch, args.seq
+    log(f"train (a) {out[0]} fp32, {len(hist)} steps of {b} x {sq} | {smi}: "
+        f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, every loss "
+        f"finite, grad_norm > 0, printed lr == lr_schedule; step_ms="
+        f"{step_s * 1e3:.1f} (median of steps 2-10) tok_s="
+        f"{b * sq / step_s:.0f} peak_gb={peak / 1e9:.2f}")
+
+
+def _max_rel(a, b):
+    """max |a - b| over max |b| (b the reference)."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _train_card_vs_cpu(dev, smi):
+    """(b) one fp32 step of internlm2-1.8b at full width and 2 layers from
+    the same weights and batch on the card and on the CPU path the tests
+    hold against JAX. AdamW's eps is 1e-3 here: its first step is g / (|g|
+    + eps), a sign where |g| >> eps, and a gradient entry within the two
+    devices' rounding of 0 would flip its step by 2 lr; with eps 1e-3 the
+    step is a smooth function of the gradient, so the updated leaves
+    compare what the gradients are."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      make_train_step)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    t0 = time.monotonic()
+    cpu = M.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    toks, labels = next(SyntheticLM(DataConfig(
+        cfg.vocab_size, 128, CPU_BATCH)).batches())
+    opt_cfg = AdamWConfig(lr=1e-3, eps=1e-3, warmup_steps=0,
+                          weight_decay=0.01)
+    step = make_train_step(cfg, opt_cfg)
+    res = {}
+    for name, params in (("card", card), ("cpu", cpu)):
+        d = params.embed.device
+        batch = {"tokens": torch.from_numpy(toks).to(d),
+                 "labels": torch.from_numpy(labels).to(d)}
+        t1 = time.monotonic()
+        params, opt, m = step(params, adamw_init(params), batch)
+        res[name] = (params, opt, {k: float(v) for k, v in m.items()},
+                     time.monotonic() - t1)
+    (pc, oc, mc, tc), (pp, op, mp, tpu) = res["card"], res["cpu"]
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(mc[k] - mp[k]) <= 1e-4 * abs(mp[k]), (k, mc[k], mp[k])
+    worst = {}
+    for what, a, b in (("param", dict(pc.named_parameters()),
+                        dict(pp.named_parameters())),
+                       ("mu", oc["mu"], op["mu"]), ("nu", oc["nu"], op["nu"])):
+        errs = {k: _max_rel(a[k].cpu(), b[k]) for k in b}
+        k = max(errs, key=errs.get)
+        worst[what] = (k, errs[k])
+        assert errs[k] <= 1e-4, (what, k, errs[k])
+    # the guard's proof on the card: attention passes its gradient back
+    for i in range(cfg.n_layers):
+        for w in ("wq", "wk", "wv"):
+            g = oc["mu"][f"blocks.{i}.attn.{w}"]
+            assert g.abs().max() > 0, f"blocks.{i}.attn.{w}: no gradient"
+    log(f"train (b) {cfg.name} full width, 2 layers, fp32, one step of "
+        f"{CPU_BATCH} x 128 | {smi}: loss card {mc['loss']:.6f} cpu "
+        f"{mp['loss']:.6f}, grad_norm card {mc['grad_norm']:.6f} cpu "
+        f"{mp['grad_norm']:.6f}; worst leaf (|card - cpu| / max |cpu|): "
+        + ", ".join(f"{w} {k} {e:.3e}" for w, (k, e) in worst.items())
+        + f" (tol 1e-4); every wq, wk, wv has a nonzero gradient on the "
+        f"card; step card {tc * 1e3:.1f} ms, cpu {tpu:.1f} s; phase "
+        f"{time.monotonic() - t0:.1f}s")
+
+
+def _digest(params):
+    """A per-leaf digest of a module's bits: the sum of its 16- or 32-bit
+    words and their sum weighted by position mod 1021."""
+    out = {}
+    for k, p in params.named_parameters():
+        w = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32).long()
+        pos = torch.arange(w.numel(), device=w.device) % 1021 + 1
+        out[k] = (int(w.sum()), int((w * pos).sum()))
+    return out
+
+
+def _train_lora_serve(dev, smi, results):
+    """(c) llama-7b-paper at full width and depth: a bf16 base (frozen)
+    and an fp32 adapter of rank 16 on q/k/v/o, ``make_lora_train_step``
+    for 10 steps of 8 x 128; the tuned adapter saved, reloaded and served
+    beside phase 2's seeded adapters on phase 2's trace and two requests
+    of its own, padded and bucketed, decode blocks 1 and 4, through B1,
+    B2 and B5. Returns the serve runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.lora.adapter import init_adapter
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      load_checkpoint, make_lora_train_step,
+                                      save_checkpoint)
+    cfg = get_config("llama-7b-paper")
+    params = _init_model(cfg, dev, tag="train (c)")
+    digest = _digest(params)
+    adapter = init_adapter(cfg, LORA_RANK,
+                           torch.Generator(device=dev).manual_seed(7))
+    opt = adamw_init(adapter)
+    step = make_lora_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                 total_steps=LORA_STEPS))
+    it = SyntheticLM(DataConfig(cfg.vocab_size, 128, 8, seed=99)).batches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], [time.monotonic()]
+    for i in range(LORA_STEPS):
+        toks, labels = next(it)
+        adapter, opt, m = step(adapter, opt, params, {
+            "tokens": torch.from_numpy(toks).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)})
+        losses.append(float(m["loss"]))
+        times.append(time.monotonic())
+        if i == 0:
+            for t in cfg.lora.targets:
+                assert opt["mu"][t]["B"].abs().max() > 0, \
+                    f"{t}: B got no gradient"
+                assert not opt["mu"][t]["A"].any(), \
+                    f"{t}: A got a gradient while B was 0"
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert _digest(params) == digest, "the frozen base changed"
+    for t in cfg.lora.targets:
+        assert adapter[t]["B"].abs().max() > 0, f"{t}: B still 0"
+    step_s = statistics.median(b - a for a, b in zip(times[1:], times[2:]))
+    log(f"train (c) {cfg.name} bf16 base (frozen, digest unchanged), fp32 "
+        f"adapter rank {LORA_RANK} on {'/'.join(cfg.lora.targets)}, "
+        f"{LORA_STEPS} LoRA steps of 8 x 128 | {smi}: step 1 gave every B "
+        f"a gradient and every A none; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step_ms={step_s * 1e3:.1f} (median of steps "
+        f"2-{LORA_STEPS}) tok_s={8 * 128 / step_s:.0f} peak_gb="
+        f"{peak / 1e9:.2f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "adapter.msgpack")
+        save_checkpoint(path, adapter)
+        tuned = load_checkpoint(path, adapter)
+    for t in adapter:
+        for k in ("A", "B"):
+            assert torch.equal(tuned[t][k], adapter[t][k])
+            assert not tuned[t][k].requires_grad
+    # phase 2's trace and two 64-token requests of the tuned adapter
+    trace, ranks, weights = _serve_trace(cfg, 8, dev)
+    rng = random.Random(15)
+    trace = trace + [(TUNED, [rng.randrange(1, cfg.vocab_size)
+                              for _ in range(64)], 16) for _ in range(2)]
+    weights[TUNED] = tuned
+    rec = MainPathCalls(widths=True)
+    launches, engines = _moe_engine_runs(
+        dev, cfg, params, trace, weights,
+        [(m, db) for m in ("padded", "bucketed") for db in (1, 4)], smi, rec,
+        tag="train (c)")
+    lg = _group_logits(cfg, engines["padded"], trace, 64)
+    assert torch.equal(lg, _group_logits(cfg, engines["bucketed"], trace,
+                                         64))
+    del engines
+    _free()
+    rows = [i for i, (aid, p, _) in enumerate(
+        [x for x in trace if len(x[1]) == 64]) if aid == TUNED]
+    toks = torch.tensor([p for aid, p, _ in trace if aid == TUNED],
+                        device=dev)
+    bank = {t: {k: v[:, None] for k, v in d.items()}
+            for t, d in tuned.items()}
+    with torch.no_grad():
+        h, _ = M.forward(cfg, params, toks, bank=bank,
+                         lora_idx=torch.zeros(len(toks), dtype=torch.int32,
+                                              device=dev))
+        ref = (h[:, -1].float() @ M.lm_head(cfg, params).float()).cpu()
+    got = lg[rows]
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    log(f"train (c) the tuned adapter served: its tokens equal in all 4 "
+        f"runs, first group's logits padded == bucketed bit for bit; its "
+        f"rows' first-prefill logits vs the einsum forward with the same "
+        f"adapter: max abs diff {err:.4e} of max |logit| {scale:.4f} "
+        f"({err / scale:.3%}; tol 5e-2 of it), argmax agree "
+        f"{(got.argmax(-1) == ref.argmax(-1)).tolist()}")
+    assert err <= 5e-2 * scale, (err, scale)
+    del params, adapter, tuned, opt
+    _free()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    d = cfg.d_model
+    for kid, name in (("B1", "sgmv_fused_blocks"),
+                      ("B2", "sgmv_multibank_blocks")):
+        args, kw, dest = rec.calls[(name, "decode", d, d)]
+        _check_and_time(kid, "trained-decode", args, kw, dest, flush,
+                        results)
+    del flush
+    return launches
+
+
+def phase_train(dev, smi):
+    """Phase 15. Returns (the launches of (c)'s serve runs, the kernels'
+    results on the trained bank)."""
+    results = {}
+    for part in (_train_full, _train_card_vs_cpu):
+        t0 = time.monotonic()
+        part(dev, smi)
+        _free()
+        log(f"phase train {part.__name__}: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    launches = _train_lora_serve(dev, smi, results)
+    _free()
+    log(f"phase train _train_lora_serve: {time.monotonic() - t0:.1f}s")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3489,8 +3804,7 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f}s")
 
     t0 = time.monotonic()
-    cfg, launches, calls, banks, tp_ref, params, einsum, dp1_tokens = \
-        phase_engine(dev)
+    cfg, launches, calls, banks, tp_ref, params, einsum = phase_engine(dev)
     log(f"phase engine: {time.monotonic() - t0:.1f}s")
     t0 = time.monotonic()
     phase_cluster(dev, cfg, params, smi)
@@ -3560,12 +3874,20 @@ def main() -> int:
         f"{ {k: v for k, v in fam_launches.items() if v} }")
     _free()
     t0 = time.monotonic()
-    dp_launches, dp_res = phase_dp(dev, smi, fp32_ref, dp1_tokens)
+    dp_launches, dp_res = phase_dp(dev, smi, fp32_ref)
     kres.update(dp_res)
     for kid, n in dp_launches.items():
         launches[kid] += n
     log(f"phase dp: {time.monotonic() - t0:.1f}s; launches "
         f"{ {k: v for k, v in dp_launches.items() if v} }")
+    _free()
+    t0 = time.monotonic()
+    train_launches, train_res = phase_train(dev, smi)
+    kres.update(train_res)
+    for kid, n in train_launches.items():
+        launches[kid] += n
+    log(f"phase train: {time.monotonic() - t0:.1f}s; launches "
+        f"{ {k: v for k, v in train_launches.items() if v} }")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

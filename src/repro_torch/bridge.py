@@ -1,4 +1,6 @@
-"""Carry weights and bank state from the JAX package to the port.
+"""Carry weights and bank state from the JAX package to the port, and
+the port's weights back into the JAX tree's layout
+(``params_to_numpy``).
 
 Everything comes in as numpy arrays, never as JAX arrays: the caller
 converts (``jax.tree.map(np.asarray, tree)``), so this module imports no
@@ -57,6 +59,45 @@ def params_from_numpy(cfg, tree, *, device="cuda",
             else:
                 _copy_leaves(child, tree[name])
     return lm
+
+
+def _np(t):
+    """A copy of a tensor as a numpy array in its type (never a view of
+    the parameter's memory, which training writes in place); bf16, which
+    numpy has no type for, as fp32 (exact)."""
+    t = t.detach().cpu()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+
+
+def _leaf_tree(module, layers=None):
+    """``module``'s parameters as the JAX subtree: a dotted name is a path
+    of nested dicts; ``layers`` (the blocks of a ``ModuleList``) stacks
+    each leaf over them on a new leading axis."""
+    tree = {}
+    for name, p in (layers[0] if layers else module).named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        if layers:
+            get = lambda b: b.get_parameter(name)
+            node[leaf] = np.stack([_np(get(b)) for b in layers])
+        else:
+            node[leaf] = _np(p)
+    return tree
+
+
+def params_to_numpy(cfg, module: BaseLM):
+    """The inverse of ``params_from_numpy``: the port's model -> the JAX
+    param tree of ``models/model.py:init_params`` as numpy arrays (each
+    ``ModuleList`` stacked on a leading layer axis), so a checkpoint of it
+    has the JAX package's keys. bf16 weights come out as fp32."""
+    tree = {name: _np(p)
+            for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        tree[name] = _leaf_tree(child, list(child)) if isinstance(
+            child, torch.nn.ModuleList) else _leaf_tree(child)
+    return tree
 
 
 def _bank_tree(tree, device, dtype):

@@ -13,7 +13,8 @@ The library lands in ``build/repro_torch/`` under the repository root,
 keyed by a hash of the sources and the flags, so an edit rebuilds. There
 is no fallback: without ``nvcc`` the build raises. ``launch`` calls one
 of the library's launchers on a device's current stream and raises on
-the CUDA error it returns.
+the CUDA error it returns. ``refuse_autograd`` is the wrappers' guard
+against a call that autograd would record.
 """
 from __future__ import annotations
 
@@ -143,3 +144,27 @@ def launch(fn_name: str, device, *args) -> None:
         err = getattr(load_library(), fn_name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+
+
+def refuse_autograd(kernel: str, *args) -> None:
+    """Raise ``RuntimeError`` when autograd would record a call of
+    ``kernel``: grad mode is on and a tensor among ``args`` (or in a
+    list or tuple of them) requires grad. A kernel writes its output by
+    raw pointer into a tensor without a ``grad_fn``, and none has a
+    backward (nor has a Pallas kernel of the JAX package a vjp), so the
+    gradient would stop there without a word. Every wrapper calls this
+    first, whatever the device, so a CPU run refuses what a card run
+    would."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(args)
+    while stack:
+        a = stack.pop()
+        if isinstance(a, (list, tuple)):
+            stack.extend(a)
+        elif isinstance(a, torch.Tensor) and a.requires_grad:
+            raise RuntimeError(
+                f"{kernel}: an input requires grad and the kernel has no "
+                "backward; train through the plain path (models.model."
+                "forward: einsum LoRA, common.flash_attention) or call "
+                "it under torch.no_grad()")

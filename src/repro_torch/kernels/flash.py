@@ -15,8 +15,9 @@ the fp32 score), in fp32 one on CUDA cores (the wrapper's tiles; q
 scaled before the product). ``csrc/flash.cu`` states the contract.
 
 On a CPU tensor the wrapper computes its plain version; on a CUDA tensor
-it launches its kernel or raises. ``flash_mha.launches`` counts kernel
-launches.
+it launches its kernel or raises. On every device it refuses an input
+that requires grad while grad mode is on (``build.refuse_autograd``: the
+kernel has no backward). ``flash_mha.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import ctypes
 import torch
 
 from .build import launch as _launch
+from .build import refuse_autograd
 
 NEG_INF = -1e30                          # the Pallas kernel's sentinel
 MAX_TILE = 128                           # block_q, block_k and hd
@@ -117,6 +119,7 @@ def flash_mha(q, k, v, *, causal: bool = True, scale=None,
     pointer and the strides over (B, H, S)); the wrapper raises otherwise.
     Returns (B, H, Sq, hd) in q's type; on CUDA its memory is laid out
     (B, Sq, H, hd), so ``out.transpose(1, 2)`` is contiguous."""
+    refuse_autograd("flash_mha", q, k, v)
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     scale = _default_scale(hd, scale)

@@ -41,7 +41,9 @@ means every row of every block is live. B2 takes ``block_t`` up to 64
 tiles over weights it reads once); the other kernels take 1..16.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches its kernel or raises. Each wrapper counts its kernel launches in
+launches its kernel or raises. On every device it refuses an input that
+requires grad while grad mode is on (``build.refuse_autograd``: no
+kernel has a backward). Each wrapper counts its kernel launches in
 a plain integer attribute, ``launches``. The ``*_ref`` plain versions run
 the same block layout with the same fp32 sums (in torch's order, not the
 kernels' slices; a block over 16 rows as 16-row tiles), the same cast of
@@ -55,6 +57,7 @@ import ctypes
 import torch
 
 from .build import launch as _launch
+from .build import refuse_autograd
 from .tune import SUPPORTED_BLOCK_T, check_block_t
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -275,6 +278,7 @@ def sgmv_fused_blocks(x_pad, A, B, block_adapter, *, block_t: int = 16,
     """B1: fused shrink+expand over a segment-blocked layout, one launch.
     Returns (T_pad, d_out); on CUDA rows past the last whole block are
     left unwritten (no caller reads them)."""
+    refuse_autograd("sgmv_fused_blocks", x_pad, A, B)
     if x_pad.device.type == "cpu":
         return sgmv_fused_blocks_ref(x_pad, A, B, block_adapter,
                                      block_t=block_t, block_live=block_live)
@@ -305,6 +309,7 @@ def sgmv_multibank_blocks(x_pad, banks, block_bucket, block_row, *,
     of (A_b (Na_b, d, r_b), B_b (Na_b, r_b, d_out)), at most 8 buckets;
     block_t one of ``tune.SUPPORTED_BLOCK_T`` (1..16, 32, 64). Returns
     (T_pad, d_out) like ``sgmv_fused_blocks``."""
+    refuse_autograd("sgmv_multibank_blocks", x_pad, banks)
     check_block_t(block_t)
     if x_pad.device.type == "cpu":
         return sgmv_multibank_blocks_ref(x_pad, banks, block_bucket,
@@ -344,6 +349,7 @@ def sgmv_shrink(x_pad, A, block_adapter, *, block_t: int = 16,
     """B3a: h = x_blk @ A[block_adapter[i]] for every whole block i.
     Returns (T_pad, r) in x's type; on CUDA rows past the last whole
     block are left unwritten (no caller reads them)."""
+    refuse_autograd("sgmv_shrink", x_pad, A)
     if x_pad.device.type == "cpu":
         return sgmv_shrink_blocks_ref(x_pad, A, block_adapter,
                                       block_t=block_t, block_live=block_live)
@@ -374,6 +380,7 @@ def sgmv_expand(h_pad, B, block_adapter, *, block_t: int = 16,
     tile and is validated; on the card it does not shape the grid, which
     is (token blocks, ceil(d_out / EXPAND_COLS)), and d_out is never
     padded."""
+    refuse_autograd("sgmv_expand", h_pad, B)
     if h_pad.device.type == "cpu":
         return sgmv_expand_blocks_ref(h_pad, B, block_adapter,
                                       block_t=block_t)
@@ -404,6 +411,7 @@ def sgmv_multibank_shrink(x_pad, A_banks, block_bucket, block_row, *,
     Returns (T_pad, max_r) in x's type; on CUDA rows past the last whole
     block are left unwritten."""
     A_banks = list(A_banks)
+    refuse_autograd("sgmv_multibank_shrink", x_pad, A_banks)
     if x_pad.device.type == "cpu":
         return sgmv_multibank_shrink_blocks_ref(x_pad, A_banks, block_bucket,
                                                 block_row, block_t=block_t,
@@ -442,6 +450,7 @@ def sgmv_multibank_expand(h_pad, B_banks, block_bucket, block_row, *,
     does not shape the card's grid (token blocks, ceil(d_out_local /
     EXPAND_COLS))."""
     B_banks = list(B_banks)
+    refuse_autograd("sgmv_multibank_expand", h_pad, B_banks)
     if h_pad.device.type == "cpu":
         return sgmv_multibank_expand_blocks_ref(h_pad, B_banks, block_bucket,
                                                 block_row, block_t=block_t)

@@ -15,7 +15,11 @@ encoder's memory at S > 1 (non-causal, Sq = S, Sk = M). GQA, windowed
 attention and explicit positions run on ``common.flash_attention``, and
 so does MLA's (its rope key is shared by the heads, and its q.k head dim
 is not v's), as in the JAX package. The route reads only shapes and
-arguments.
+arguments, and ``flash_kernel``: the full-sequence forms take it, and
+``flash_kernel=False`` sends every shape to ``common.flash_attention``,
+the reference's plain path, which autograd differentiates. Training
+passes it (``model.forward``): B5 has no backward, and its wrapper
+refuses a tensor that requires grad.
 
 Products take the promoted type of their operands (``common.mm``), as
 JAX's do: the engine's frontend is fp32, so over bf16 weights the audio
@@ -126,20 +130,25 @@ def _out_proj(p, o, lora, tp):
 
 
 def gqa_full(cfg, p: GQAAttention, x, positions=None, *, causal=True,
-             window=0, lora: Optional[Callable] = None, tp=None):
+             window=0, lora: Optional[Callable] = None, tp=None,
+             flash_kernel: bool = True):
     """Full-sequence attention. ``positions=None`` means the prefill's
     (or the audio encoder's) ``arange(S)``; then, when the attention is
-    unwindowed and MHA (H == Kv, counted on this rank), it runs on kernel
-    B5, causal (whose top-left mask is the prefill's) or not. The choice
-    reads only shapes and arguments. Returns (out, (k, v)) for cache
-    seeding; k, v hold this rank's kv heads."""
+    unwindowed and MHA (H == Kv, counted on this rank) and
+    ``flash_kernel`` is True (serving), it runs on kernel B5, causal
+    (whose top-left mask is the prefill's) or not. ``flash_kernel=False``
+    (training) runs every shape on ``common.flash_attention``, which
+    autograd differentiates. The choice reads only shapes and arguments.
+    Returns (out, (k, v)) for cache seeding; k, v hold this rank's kv
+    heads."""
     lora = lora or _zero_lora
     B, S = x.shape[:2]
     from_zero = positions is None
     if from_zero:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(cfg, p, x, positions, lora)
-    if from_zero and not window and q.shape[2] == k.shape[2]:
+    if flash_kernel and from_zero and not window and \
+            q.shape[2] == k.shape[2]:
         o = _flash_mha(q, k, v, causal)
     else:
         o = flash_attention(q, k, v, causal=causal, q_positions=positions,
@@ -262,11 +271,14 @@ def _mla_expand(cfg, p: MLAAttention, c):
 
 
 def mla_full(cfg, p: MLAAttention, x, positions=None, *, causal=True,
-             window=0, lora: Optional[Callable] = None, tp=None):
+             window=0, lora: Optional[Callable] = None, tp=None,
+             flash_kernel: bool = True):
     """Full-sequence MLA; ``positions=None`` means ``arange(S)``. The score
     is q_nope.k_nope + q_rope.k_rope, the shared rope key scored as
-    ``flash_attention``'s ``extra_qk``. Returns (out, (c, kr)) for cache
-    seeding: c (B,S,kv_lora_rank), kr (B,S,rope)."""
+    ``flash_attention``'s ``extra_qk``: every call is on the plain path,
+    so ``flash_kernel`` (``gqa_full``'s) changes nothing here. Returns
+    (out, (c, kr)) for cache seeding: c (B,S,kv_lora_rank), kr
+    (B,S,rope)."""
     lora = lora or _zero_lora
     m = cfg.mla
     B, S, _ = x.shape
@@ -354,12 +366,14 @@ def cross_kv(cfg, p: CrossAttention, memory):
             mm(memory, p.wv).reshape(B, M, Kv, hd))
 
 
-def cross_attend(cfg, p: CrossAttention, x, k, v, lora=None, tp=None):
+def cross_attend(cfg, p: CrossAttention, x, k, v, lora=None, tp=None,
+                 flash_kernel: bool = True):
     """x: (B, S, d) queries; k, v: (B, M, Kv, hd) from ``cross_kv`` (or
     the cache). Non-causal, no RoPE. At S = 1 ``attend_cache`` with every
-    key valid; at S > 1 MHA runs on B5 non-causal (Sq = S, Sk = M), GQA
-    on ``flash_attention(causal=False)`` over ``arange(S)`` and
-    ``arange(M)``. The output is in the type of x's product with the
+    key valid; at S > 1 MHA runs on B5 non-causal (Sq = S, Sk = M) when
+    ``flash_kernel`` is True (serving), GQA and every shape with
+    ``flash_kernel=False`` (training) on ``flash_attention(causal=False)``
+    over ``arange(S)`` and ``arange(M)``. The output is in the type of x's product with the
     weights. At tp > 1 k, v hold the rank's kv heads and the output
     projection ends in one all-reduce."""
     lora = lora or _zero_lora
@@ -370,7 +384,7 @@ def cross_attend(cfg, p: CrossAttention, x, k, v, lora=None, tp=None):
     if S == 1:
         valid = torch.ones((B, M), dtype=torch.bool, device=x.device)
         o = attend_cache(q, k, v, valid)
-    elif q.shape[2] == k.shape[2]:
+    elif flash_kernel and q.shape[2] == k.shape[2]:
         o = _flash_mha(q, k, v, causal=False)
     else:
         o = flash_attention(q, k, v, causal=False,

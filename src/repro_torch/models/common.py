@@ -1,7 +1,8 @@
 """Shared model machinery of the PyTorch port: the token-major flattening
 the SGMV path consumes, norms, rope, init, and plain-torch attention (a
 chunked online-softmax ``flash_attention`` for prefill and
-``attend_cache`` for decode). Counterparts of the JAX package's
+``attend_cache`` for decode) and the training loss
+``chunked_cross_entropy``. Counterparts of the JAX package's
 ``models/common.py``; no library attention kernel is used.
 
 LoRA callback contract: blocks call ``lora(name, x) -> delta`` with
@@ -27,6 +28,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -246,3 +248,35 @@ def attend_cache(q, k_cache, v_cache, valid_mask, scale=None):
     o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, 1, H, hdv).to(q.dtype)
+
+
+def _ce_chunk(hc, w, lc):
+    """The summed NLL of one chunk: fp32 logits (B, c, V), logsumexp minus
+    the label's logit, rows labelled -1 masked out."""
+    logits = hc.float() @ w
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, lc.clamp_min(0).long()[..., None])[..., 0]
+    return ((lse - tgt) * (lc >= 0).float()).sum()
+
+
+def chunked_cross_entropy(h, lm_head, labels, chunk: int = 256):
+    """h: (B,S,d); lm_head: (d,V); labels: (B,S) int (-1: ignored). Mean
+    NLL over B·S, the JAX ``chunked_cross_entropy``: S padded to a
+    multiple of c = min(chunk, S) with -1 labels, fp32 logits one chunk
+    at a time, the chunks' sums added in order. It never holds (B, S, V)
+    logits at once: under autograd each chunk is checkpointed, so its
+    logits are made again in the backward pass instead of kept."""
+    B, S, _ = h.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    hp = F.pad(h, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad), value=-1)
+    w = lm_head.float()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S + pad, c):
+        args = (hp[:, i:i + c], w, lp[:, i:i + c])
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            tot = tot + _ce_chunk(*args)
+    return tot / (B * S)

@@ -38,7 +38,9 @@ the JAX package:
 ``prefill`` and ``decode_step`` write each layer's entries into the cache
 tensors in place (JAX returns new arrays) and return a dict with a new
 ``pos``. Serving ignores the MoE layers' balance loss, as the JAX prefill
-and decode do.
+and decode do. ``forward`` and ``loss_fn`` are the training side: the
+prefill's runners without a cache, summing the balance loss, on the
+plain attention path that autograd differentiates.
 
 The VLM and audio prefills take a ``frontend`` (B, M, d): patch or frame
 embeddings. Products take the promoted type of their operands
@@ -73,10 +75,12 @@ mesh's "data" shards do) and the drop-free path elsewhere.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.lora.batched import make_lora_cb
@@ -84,7 +88,8 @@ from repro_torch.lora.batched import make_lora_cb
 from .attention import (CrossAttention, GQAAttention, MLAAttention,
                         cross_attend, cross_kv, gqa_decode, gqa_full,
                         local_kv_heads, mla_decode, mla_full)
-from .common import all_gather_, all_reduce_, dense_init, rmsnorm, tp_size
+from .common import (all_gather_, all_reduce_, chunked_cross_entropy,
+                     dense_init, rmsnorm, tp_size)
 from .ffn import MoE, SwiGLU, moe_ffn
 from .ssm import (Mamba2, RWKV6, mamba2_full, mamba2_state, mamba2_step,
                   mamba_dims, rwkv6_channel_mix, rwkv6_state,
@@ -339,22 +344,25 @@ def _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp):
 
 
 def _ffn(cfg, bp: DenseBlock, x, tp):
+    """The block's FFN on rmsnorm(x): (out, the MoE's balance loss, or
+    0.0 for a SwiGLU)."""
     xn = rmsnorm(x, bp.ln2, cfg.rmsnorm_eps)
     if cfg.moe is not None:
-        return moe_ffn(cfg, bp.ffn, xn, tp=tp)[0]
-    return bp.ffn(xn, tp)
+        return moe_ffn(cfg, bp.ffn, xn, tp=tp)
+    return bp.ffn(xn, tp), 0.0
 
 
-def _dense_block_full(cfg, bp: DenseBlock, x, window, lora, tp):
+def _dense_block_full(cfg, bp: DenseBlock, x, window, lora, tp,
+                      flash_kernel=True):
+    """Returns (x, (k, v) or MLA's (c, kr), the FFN's balance loss)."""
     # positions None: the prefill's arange(S), which lets MHA attention
-    # take kernel B5
-    xn = rmsnorm(x, bp.ln1, cfg.rmsnorm_eps)
-    if cfg.mla is not None:
-        h, kv = mla_full(cfg, bp.attn, xn, window=window, lora=lora, tp=tp)
-    else:
-        h, kv = gqa_full(cfg, bp.attn, xn, window=window, lora=lora, tp=tp)
+    # take kernel B5 (unless flash_kernel is False)
+    attn = mla_full if cfg.mla is not None else gqa_full
+    h, kv = attn(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
+                 window=window, lora=lora, tp=tp, flash_kernel=flash_kernel)
     x = x + h
-    return x + _ffn(cfg, bp, x, tp), kv
+    f, aux = _ffn(cfg, bp, x, tp)
+    return x + f, kv, aux
 
 
 def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
@@ -367,16 +375,16 @@ def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
         h, _ = gqa_decode(cfg, bp.attn, xn, kc, vc, pos, window=window,
                           lora=lora, tp=tp)
     x = x + h
-    return x + _ffn(cfg, bp, x, tp)
+    return x + _ffn(cfg, bp, x, tp)[0]
 
 
-def _cross_block(cfg, bp: CrossBlock, x, kc, vc, tp):
+def _cross_block(cfg, bp: CrossBlock, x, kc, vc, tp, flash_kernel=True):
     """The VLM's gated block: x + tanh(gate_attn) * cross-attention, then
     + tanh(gate_ffn) * SwiGLU."""
     h = cross_attend(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps), kc,
-                     vc, tp=tp)
+                     vc, tp=tp, flash_kernel=flash_kernel)
     x = x + torch.tanh(bp.gate_attn) * h
-    return x + torch.tanh(bp.gate_ffn) * _ffn(cfg, bp, x, tp)
+    return x + torch.tanh(bp.gate_ffn) * _ffn(cfg, bp, x, tp)[0]
 
 
 def _rwkv_block(cfg, bp: RWKV6, x, st, lora, tp):
@@ -471,106 +479,196 @@ def _write_prefill_kv(kvs, cache_arr, window):
 
 def _write_kv(cfg, cache, i, kv, window):
     """Layer (or application) ``i``'s prefill K/V into the cache, one at a
-    time (no stacked (L, ...) copy)."""
+    time (no stacked (L, ...) copy); nothing without a cache (``forward``
+    runs the runners with ``cache=None``)."""
+    if cache is None:
+        return
     for name, t in zip(_cache_keys(cfg), kv):
         _write_prefill_kv(t[None], cache[name][i:i + 1], window)
 
 
+def _remat(remat, fn, *args):
+    """fn(*args); with ``remat``, checkpointed (the JAX ``jax.checkpoint``
+    of a layer): its activations are made again in the backward pass,
+    the same values, instead of kept."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _run_dense_full(cfg, params: DenseLM, x, cache, *, window, bank,
-                    lora_idx, lora_kernel, tp):
+                    lora_idx, lora_kernel, tp, remat=False,
+                    flash_kernel=True):
+    aux = 0.0
     for i, bp in enumerate(params.blocks):
         lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
-        x, kv = _dense_block_full(cfg, bp, x, window, lora, tp)
+        x, kv, a = _remat(remat, functools.partial(
+            _dense_block_full, cfg, bp, window=window, lora=lora, tp=tp,
+            flash_kernel=flash_kernel), x)
+        aux = aux + a
         _write_kv(cfg, cache, i, kv, window)
-    return x
+    return x, aux
 
 
 def _write_cross(cache, i, xk, xv):
     """Cross-attention application ``i``'s K/V into the cache, in its
-    type."""
+    type; nothing without a cache."""
+    if cache is None:
+        return
     cache["xk"][i] = xk.to(cache["xk"].dtype)
     cache["xv"][i] = xv.to(cache["xv"].dtype)
 
 
 def _run_vlm_full(cfg, params: VisionLM, x, cache, *, window, frontend,
-                  bank, lora_idx, lora_kernel, tp):
+                  bank, lora_idx, lora_kernel, tp, remat=False,
+                  flash_kernel=True):
     # no adapter reaches the VLM (the JAX ``_run_vlm_full`` binds none)
     per = cfg.cross_attn_every - 1
+    aux = 0.0
     for p, cb in enumerate(params.cross_blocks):
         xk, xv = cross_kv(cfg, cb.attn, frontend)
         for i in range(p * per, (p + 1) * per):
-            x, kv = _dense_block_full(cfg, params.self_blocks[i], x, window,
-                                      None, tp)
+            x, kv, a = _remat(remat, functools.partial(
+                _dense_block_full, cfg, params.self_blocks[i],
+                window=window, lora=None, tp=tp,
+                flash_kernel=flash_kernel), x)
+            aux = aux + a
             _write_kv(cfg, cache, i, kv, window)
-        x = _cross_block(cfg, cb, x, xk, xv, tp)
+        x = _cross_block(cfg, cb, x, xk, xv, tp, flash_kernel)
         _write_cross(cache, p, xk, xv)
-    return x
+    return x, aux
 
 
-def _run_audio_encoder(cfg, params: EncDecLM, frames, tp=None):
+def _run_audio_encoder(cfg, params: EncDecLM, frames, tp=None,
+                       flash_kernel=True):
     """The bidirectional encoder over frame embeddings (B, M, d): RoPE over
-    the frame positions, non-causal self-attention (B5 for MHA), SwiGLU;
-    the memory after ``enc_ln_f``, in the promoted type of the frames and
-    the weights. At tp > 1 a dense stack split as the decoder's is; the
-    memory is whole on every rank."""
+    the frame positions, non-causal self-attention (B5 for MHA unless
+    ``flash_kernel`` is False), SwiGLU; the memory after ``enc_ln_f``, in
+    the promoted type of the frames and the weights. At tp > 1 a dense
+    stack split as the decoder's is; the memory is whole on every
+    rank."""
     x = frames
     for bp in params.enc_blocks:
         h, _ = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                        causal=False, tp=tp)
+                        causal=False, tp=tp, flash_kernel=flash_kernel)
         x = x + h
-        x = x + _ffn(cfg, bp, x, tp)
+        x = x + _ffn(cfg, bp, x, tp)[0]
     return rmsnorm(x, params.enc_ln_f, cfg.rmsnorm_eps)
 
 
+def _audio_dec_block(cfg, bp: EncDecBlock, x, xk, xv, *, window, lora, tp,
+                     flash_kernel):
+    """One decoder layer: (x, its self-attention's (k, v))."""
+    h, kv = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
+                     window=window, lora=lora, tp=tp,
+                     flash_kernel=flash_kernel)
+    x = x + h
+    x = x + cross_attend(cfg, bp.cross, rmsnorm(x, bp.lnc, cfg.rmsnorm_eps),
+                         xk, xv, tp=tp, flash_kernel=flash_kernel)
+    return x + _ffn(cfg, bp, x, tp)[0], kv
+
+
 def _run_audio_full(cfg, params: EncDecLM, x, cache, *, window, frontend,
-                    bank, lora_idx, lora_kernel, tp):
-    memory = _run_audio_encoder(cfg, params, frontend, tp)
+                    bank, lora_idx, lora_kernel, tp, remat=False,
+                    flash_kernel=True):
+    memory = _run_audio_encoder(cfg, params, frontend, tp, flash_kernel)
     for i, bp in enumerate(params.dec_blocks):
         xk, xv = cross_kv(cfg, bp.cross, memory)
         # the decoder's self-attention is the only LoRA site (ROADMAP C3)
         lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
-        h, kv = gqa_full(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
-                         window=window, lora=lora, tp=tp)
-        x = x + h
-        x = x + cross_attend(cfg, bp.cross,
-                             rmsnorm(x, bp.lnc, cfg.rmsnorm_eps), xk, xv,
-                             tp=tp)
-        x = x + _ffn(cfg, bp, x, tp)
+        x, kv = _remat(remat, functools.partial(
+            _audio_dec_block, cfg, bp, window=window, lora=lora, tp=tp,
+            flash_kernel=flash_kernel), x, xk, xv)
         _write_kv(cfg, cache, i, kv, window)
         _write_cross(cache, i, xk, xv)
-    return x
+    # the reference's decoder adds no balance loss
+    return x, 0.0
 
 
 def _run_hybrid_full(cfg, params: HybridLM, x, cache, *, window, bank,
-                     lora_idx, lora_kernel, tp):
+                     lora_idx, lora_kernel, tp, remat=False,
+                     flash_kernel=True):
     # one bank layer: the shared block's adapters at every application
     lora = _layer_lora(cfg, bank, 0, lora_idx, lora_kernel, tp)
+    aux = 0.0
     for i, (start, size) in enumerate(_hybrid_segments(cfg)):
-        x, kv = _dense_block_full(cfg, params.shared_attn, x, window, lora,
-                                  tp)
+        x, kv, a = _dense_block_full(cfg, params.shared_attn, x, window,
+                                     lora, tp, flash_kernel)
+        aux = aux + a
         _write_kv(cfg, cache, i, kv, window)
         for j in range(start, start + size):
-            x, cache["ssm"][j] = _mamba_layer(
-                cfg, params.mamba_blocks[j], x,
-                mamba2_state(cfg, x.shape[0], device=x.device, tp=tp),
-                False, tp)
-    return x
+            x, st = _remat(remat, functools.partial(
+                _mamba_layer, cfg, params.mamba_blocks[j], step=False,
+                tp=tp), x,
+                mamba2_state(cfg, x.shape[0], device=x.device, tp=tp))
+            if cache is not None:
+                cache["ssm"][j] = st
+    return x, aux
 
 
 def _run_rwkv_full(cfg, params: RWKVLM, x, cache, *, window, bank,
-                   lora_idx, lora_kernel, tp):
+                   lora_idx, lora_kernel, tp, remat=False,
+                   flash_kernel=True):
     st0 = rwkv6_state(cfg, x.shape[0], x.dtype, x.device, tp)
     for i, bp in enumerate(params.blocks):
         lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
-        x, st = _rwkv_block(cfg, bp, x, st0, lora, tp)
-        for name, t in st.items():
-            cache[name][i] = t
-    return x
+        x, st = _remat(remat, functools.partial(
+            _rwkv_block, cfg, bp, st=st0, lora=lora, tp=tp), x)
+        if cache is not None:
+            for name, t in st.items():
+                cache[name][i] = t
+    return x, 0.0
 
 
 _RUN_FULL = {"dense": _run_dense_full, "moe": _run_dense_full,
              "hybrid": _run_hybrid_full, "ssm": _run_rwkv_full,
              "vlm": _run_vlm_full, "audio": _run_audio_full}
+
+
+def _cross_args(cfg, frontend, what):
+    """The runner's ``frontend`` keyword: the VLM and audio families need
+    one (B, M, d), the others take no part of it."""
+    if not n_cross_applications(cfg):
+        return {}
+    if frontend is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} {what} needs a "
+                         "frontend (B, M, d)")
+    return {"frontend": frontend}
+
+
+def forward(cfg, params: BaseLM, tokens, *, frontend=None, bank=None,
+            lora_idx=None, window: Optional[int] = None, remat=False,
+            lora_kernel="einsum"):
+    """Teacher-forced full-sequence forward, the JAX ``forward``: returns
+    (h (B, S, d) after ``ln_f``, aux), aux the fp32 sum of the MoE layers'
+    balance losses (0 for the other families). The prefill's runners with
+    no cache, every attention on the plain ``common.flash_attention``
+    (``flash_kernel=False``: B5 has no backward) and LoRA through
+    ``lora_kernel``, whose default "einsum" autograd differentiates (the
+    SGMV kernels refuse inputs that require grad). ``remat``
+    checkpoints a layer where the JAX forward applies
+    ``jax.checkpoint``: every dense, MoE and RWKV-6 layer, the VLM's
+    self-attention layers, the audio decoder's layers and the hybrid's
+    Mamba2 layers; loss and gradients are the same bits either way."""
+    _check_family(cfg)
+    window = cfg.sliding_window if window is None else window
+    x = _embed(cfg, params, tokens)
+    h, aux = _RUN_FULL[cfg.family](
+        cfg, params, x, None, window=window, bank=bank, lora_idx=lora_idx,
+        lora_kernel=lora_kernel, tp=None, remat=remat, flash_kernel=False,
+        **_cross_args(cfg, frontend, "forward"))
+    return (rmsnorm(h, params.ln_f, cfg.rmsnorm_eps),
+            torch.as_tensor(aux, dtype=torch.float32, device=h.device))
+
+
+def loss_fn(cfg, params: BaseLM, batch, *, remat=True, aux_coef=0.01):
+    """The JAX ``loss_fn``: ``chunked_cross_entropy`` of ``forward`` on
+    batch["tokens"] (and batch["frontend"], where the family takes one)
+    against batch["labels"], plus aux_coef times the balance loss."""
+    h, aux = forward(cfg, params, batch["tokens"],
+                     frontend=batch.get("frontend"), remat=remat)
+    loss = chunked_cross_entropy(h, lm_head(cfg, params), batch["labels"])
+    return loss + aux_coef * aux
 
 
 def prefill(cfg, params: BaseLM, tokens, *, frontend=None, bank=None,
@@ -586,18 +684,13 @@ def prefill(cfg, params: BaseLM, tokens, *, frontend=None, bank=None,
     B, S = tokens.shape
     cache_len = cache_len or (min(S, window) if window else S)
     x = _embed(cfg, params, tokens, tp)
-    cross = {}
-    if n_cross_applications(cfg):
-        if frontend is None:
-            raise ValueError(f"{cfg.name}: the {cfg.family} prefill needs "
-                             "a frontend (B, M, d)")
-        cross = {"frontend": frontend}
+    cross = _cross_args(cfg, frontend, "prefill")
     cache = init_cache(cfg, B, cache_len, cache_dtype or params.embed.dtype,
                        device=tokens.device, tp=tp,
                        enc_len=frontend.shape[1] if cross else None)
-    x = _RUN_FULL[cfg.family](cfg, params, x, cache, window=window,
-                              bank=bank, lora_idx=lora_idx,
-                              lora_kernel=lora_kernel, tp=tp, **cross)
+    x, _ = _RUN_FULL[cfg.family](cfg, params, x, cache, window=window,
+                                 bank=bank, lora_idx=lora_idx,
+                                 lora_kernel=lora_kernel, tp=tp, **cross)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
     h_last = rmsnorm(x[:, -1], params.ln_f, cfg.rmsnorm_eps)
@@ -668,7 +761,7 @@ def _decode_audio(cfg, params: EncDecLM, cache, x, pos, *, window, bank,
         x = x + cross_attend(cfg, bp.cross,
                              rmsnorm(x, bp.lnc, cfg.rmsnorm_eps),
                              cache["xk"][i], cache["xv"][i], tp=tp)
-        x = x + _ffn(cfg, bp, x, tp)
+        x = x + _ffn(cfg, bp, x, tp)[0]
     return x
 
 

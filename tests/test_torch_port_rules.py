@@ -127,7 +127,7 @@ COPIES = {f: (f, None) for f in (
     "configs/deepseek_v2_lite_16b.py", "configs/llama4_scout_17b_16e.py",
     "configs/zamba2_7b.py", "configs/rwkv6_7b.py",
     "configs/llama_3_2_vision_90b.py", "configs/seamless_m4t_large_v2.py",
-    "serving/paging.py")}
+    "serving/paging.py", "data/__init__.py", "data/pipeline.py")}
 COPIES["core/invariants.py"] = ("analysis/protocol.py",
                                 "check_store_invariants")
 COPIES["serving/backend.py"] = ("serving/backend.py", "ServingBackend")
