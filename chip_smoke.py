@@ -334,20 +334,44 @@ Phases (any failure raises; the script then exits non-zero):
                first-prefill logits within 5e-2 of the largest logit of
                the einsum ``forward`` with the same adapter; B1 and B2 on
                the engine's decode calls, with the trained B in the bank,
-               against their plain versions. The kernels line adds (c)'s
-               launches.
+               against their plain versions, and their gathered-``bmm``
+               yardsticks. The kernels line adds (c)'s launches.
+ 16. tools   — after phase 15, the tools (``repro_torch.analysis``,
+               ``launch/dryrun.py``, ``launch/mesh.py:roofline``, the
+               examples), their CPU parts in subprocesses beside the
+               card's: (a) ``python -m repro_torch.analysis`` (lint, smem
+               on the card's own limits and each compiled kernel
+               instantiation's registers, static and dynamic shared
+               memory and spills, protocol) exits 0; its ``smem[...]``
+               lines are printed. (b) ``python -m
+               repro_torch.launch.dryrun --mesh single`` over every arch
+               and shape (two processes): every case ok or refused (C5);
+               ``launch/report.py``'s two tables, llama-7b-paper's rows
+               printed. (c) llama-7b-paper's decode case at full width
+               (bf16, the dry-run's 8 rank-64 adapters, a cache of 8 x
+               1024) built on the card by the dry-run's own ``build_case``: the
+               allocator holds its argument bytes to within 512 B a
+               tensor (the requested bytes exactly); one decode step
+               timed over CUDA events beside the dry-run's t_memory and
+               t_compute. (d) ``repro_torch.examples.quickstart`` and
+               ``serve_cluster`` on the card exit 0; their tokens and
+               summaries printed. The bounds of every ``kernel`` line
+               take the card's published peaks from ``launch/mesh.py:
+               roofline``.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
 fp32 products run in full fp32 on both sides of every comparison.
 """
 import asyncio
 import dataclasses
+import functools
 import gc
 import http.client
 import json
 import math
 import os
 import random
+import re
 import select
 import signal
 import statistics
@@ -363,8 +387,6 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 SPIN_CYCLES = 5_000_000               # ~2.5 ms of the card's clock
 BLOCK_T = 16
@@ -391,10 +413,8 @@ def log(*a):
 
 
 def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    from repro_torch.launch.mesh import power_limit_line
+    return power_limit_line()
 
 
 def _wrappers():
@@ -682,6 +702,14 @@ def _plan(kid, args, dtype, bt=BLOCK_T):
     return " ".join(plan)
 
 
+@functools.lru_cache(maxsize=None)
+def _roofline(dev):
+    """The card's published peaks (``launch/mesh.py:roofline``): the
+    bounds' HBM rate and peak FLOP/s by type."""
+    from repro_torch.launch.mesh import roofline
+    return roofline(dev)
+
+
 def _check_and_time(kid, layout, args0, kw, dest, flush, results):
     """One kernel wrapper and its plain version on one call's arguments,
     bf16 (as the path ran it) and cast to fp32: compared (every row of
@@ -732,8 +760,9 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
             f"{kid} {layout} {dtype}: max abs err {err} > tol {tol}"
         ms = _time_ms(lambda: fn(*args, **kw), flush)
         plain_ms = _time_ms(lambda: plain(*args, **kw), flush)
-        t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        roof = _roofline(dev)
+        t_bytes = byts / roof.hbm_bytes_per_s * 1e3
+        t_ops = flops / roof.flops(dtype) * 1e3
         bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
         lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
         plan = _plan(kid, args, dtype, _block_t(kw))
@@ -3763,6 +3792,7 @@ def _train_lora_serve(dev, smi, results):
         args, kw, dest = rec.calls[(name, "decode", d, d)]
         _check_and_time(kid, "trained-decode", args, kw, dest, flush,
                         results)
+        _yardstick(kid, "trained-decode", args, kw, dest, flush)
     del flush
     return launches
 
@@ -3781,6 +3811,206 @@ def phase_train(dev, smi):
     _free()
     log(f"phase train _train_lora_serve: {time.monotonic() - t0:.1f}s")
     return launches, results
+
+
+TOOLS_ARCH = "llama-7b-paper"
+TOOLS_SHAPE = ("card", 1024, 8, "decode")      # (c)'s cache: 8 x 1024
+TOOLS_TIMEOUT = 900                          # seconds, each subprocess
+# each example and the lines its stdout must hold: quickstart's five
+# requests each with its tokens and all five finished; serve_cluster's
+# mini cluster with its ten requests finished and the pool's invariant
+EXAMPLES = {
+    "quickstart": [r"^request \d+ \([^)]*\): tokens \[\d+(, \d+)*\]$"] * 5 +
+                  [r"^metrics: \{'finished': 5,"],
+    "serve_cluster": [r"^finished=10/10 .* invariant=OK$"],
+}
+DRYRUN_PROCS = 2                             # dry-run processes, (b)
+
+
+def _tools_env():
+    root = Path(__file__).resolve().parent
+    return root, dict(os.environ, PYTHONPATH=str(root / "src"))
+
+
+def _tools_measured_case(dev, smi):
+    """(c) llama-7b-paper at full width, bf16, the dry-run's 8 rank-64
+    adapters and a decode cache of 8 x 1024, built on the card by the
+    dry-run's own ``launch/specs.py:build_case``: the bytes
+    the allocator holds for it against the dry-run's argument bytes, and
+    one decode step timed over CUDA events beside the dry-run's roofline
+    terms for the same case."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, mesh, specs
+    cfg = get_config(TOOLS_ARCH)
+    shape = InputShape(*TOOLS_SHAPE)
+    roof = mesh.roofline(dev)
+    meta = specs.build_case(cfg, shape, (1, 1), device="meta")
+    with torch.no_grad():
+        counter, _ = dryrun.flop_count(meta.fn, *meta.args)
+    t_compute = counter.total / roof.flops(torch.bfloat16)
+    t_memory = counter.hbm_bytes / roof.hbm_bytes_per_s
+    want = sum(meta.arg_bytes.values())
+    _free()
+    torch.cuda.synchronize(dev)
+    stats0 = torch.cuda.memory_stats(dev)
+    case = specs.build_case(cfg, shape, (1, 1), device=dev)
+    torch.cuda.synchronize(dev)
+    stats1 = torch.cuda.memory_stats(dev)
+    assert case.arg_bytes == meta.arg_bytes, (case.arg_bytes,
+                                              meta.arg_bytes)
+    n = len(case.tensors())
+    held = stats1["allocated_bytes.all.current"] - \
+        stats0["allocated_bytes.all.current"]
+    asked = stats1.get("requested_bytes.all.current", 0) - \
+        stats0.get("requested_bytes.all.current", 0)
+    log(f"tools (c) {cfg.name} bf16, {specs.DRYRUN_N_ADAPTERS} adapters "
+        f"of rank {specs.DRYRUN_MAX_RANK}, cache {shape.global_batch} x "
+        f"{shape.seq_len} | {smi}: argument bytes {want} "
+        f"({case.arg_bytes}); the allocator holds {held} B in {n} "
+        f"tensors (requested {asked} B); {held - want} B over, the "
+        f"rounding allows < {512 * n}")
+    assert want <= held < want + 512 * n, (want, held, n)
+    if "requested_bytes.all.current" in stats1:
+        assert asked == want, (asked, want)
+    with torch.no_grad():
+        logits, _ = case.fn(*case.args)
+        torch.cuda.synchronize(dev)
+        assert logits.shape == (shape.global_batch, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+        times = []
+        for _ in range(10):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            case.fn(*case.args)
+            b.record()
+            torch.cuda.synchronize(dev)
+            times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    log(f"tools (c) one decode step (the dry-run's callable: einsum LoRA, "
+        f"plain decode attention) {ms:.3f} ms median of 10 over CUDA "
+        f"events; the dry-run's t_memory {t_memory * 1e3:.4f} ms "
+        f"({counter.hbm_bytes} B of eager traffic), t_compute "
+        f"{t_compute * 1e3:.4f} ms ({counter.total:.4e} FLOP) at "
+        f"{roof.name}'s data sheet | {smi}")
+    _tools_profile(case)
+    del case, logits
+    _free()
+
+
+def _tools_profile(case, top=8):
+    """(c)'s decode step once under ``torch.profiler``: the device time of
+    its kernels by the aten op that launched them, the largest ``top``
+    printed, beside the step's time on the host's clock."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        case.fn(*case.args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = prof.key_averages()
+    ops = sorted((e for e in evs if e.device_type ==
+                  torch.autograd.DeviceType.CPU and
+                  e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    kernels = sum(e.count for e in evs
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    log(f"tools (c) profile of one step: {wall:.3f} ms on the host's "
+        f"clock under the profiler, {busy:.3f} ms of kernels ({kernels} "
+        f"launches; idle share {1 - busy / wall:.3f})")
+    for e in ops[:top]:
+        log(f"tools (c)   {e.key}: {e.self_device_time_total / 1e3:.3f} ms "
+            f"of kernels in {e.count} calls")
+
+
+def phase_tools(dev, smi):
+    """Phase 16: the tools. (c) measures a dry-run case on the card first,
+    alone; then (a) ``python -m repro_torch.analysis`` (lint, smem on the
+    card's own attributes, protocol) and (b) ``python -m
+    repro_torch.launch.dryrun --mesh single`` over every arch (dealt to
+    ``DRYRUN_PROCS`` processes) run as subprocesses while (d) runs both
+    examples on the card and checks what they print."""
+    root, env = _tools_env()
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun-"))
+    t0 = time.monotonic()
+    _tools_measured_case(dev, smi)
+    log(f"phase tools (c): {time.monotonic() - t0:.1f}s")
+    procs = {}
+    try:
+        procs["a"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis"], cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        from repro_torch.configs import ARCH_IDS
+        for i in range(DRYRUN_PROCS):       # the archs dealt out in turn
+            procs[f"b{i}"] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", ",".join(ARCH_IDS[i::DRYRUN_PROCS]), "--shape",
+                 "all", "--mesh", "single", "--out", str(out_dir),
+                 "--case-timeout", "300"], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, wanted in EXAMPLES.items():
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"repro_torch.examples.{name}"],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=TOOLS_TIMEOUT)
+            lines = proc.stdout.splitlines()
+            for line in lines:
+                log(f"tools (d) {name}: {line}")
+            assert proc.returncode == 0, (name, proc.stderr[-3000:])
+            for pattern in set(wanted):
+                n = sum(bool(re.search(pattern, x)) for x in lines)
+                assert n == wanted.count(pattern), (name, pattern, n)
+            log(f"tools (d) {name} exited 0 on the card in "
+                f"{time.monotonic() - t0:.1f}s, its {len(wanted)} checked "
+                f"lines as expected")
+        t0 = time.monotonic()
+        out, err = procs["a"].communicate(timeout=TOOLS_TIMEOUT)
+        for line in (err + out).splitlines():
+            log(f"tools (a) {line}")
+        assert procs["a"].returncode == 0, procs["a"].returncode
+        assert "smem[" in err and "protocol[" in err
+        log(f"tools (a) python -m repro_torch.analysis exited 0 "
+            f"(lint, smem on the card's attributes, protocol); waited "
+            f"{time.monotonic() - t0:.1f}s more")
+        t0 = time.monotonic()
+        for i in range(DRYRUN_PROCS):
+            proc = procs[f"b{i}"]
+            out, _ = proc.communicate(timeout=TOOLS_TIMEOUT)
+            for line in out.splitlines():
+                log(f"tools (b) {line}")
+            assert proc.returncode == 0, proc.returncode
+        _tools_report(out_dir)
+        log(f"tools (b) waited {time.monotonic() - t0:.1f}s more")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _tools_report(out_dir):
+    """(b): every case ok or refused (C5); ``report.py``'s two tables,
+    llama-7b-paper's rows printed."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+    from repro_torch.launch import report
+    ok = sorted(out_dir.glob("*.json"))
+    refused = sorted((out_dir / "refused").glob("*.json"))
+    assert len(ok) + len(refused) == len(ARCH_IDS) * len(INPUT_SHAPES), \
+        (len(ok), len(refused))
+    for p in refused:
+        assert json.loads(p.read_text())["status"] == "refused (C5)", p
+    arts = report.load(str(out_dir))
+    for table in (report.roofline_table(arts, mesh="16x16"),
+                  report.dryrun_table(arts)):
+        lines = table.splitlines()
+        for line in lines[:2] + [x for x in lines if TOOLS_ARCH in x]:
+            log(f"tools (b) {line}")
+    log(f"tools (b) {len(ok)} cases ok, {len(refused)} refused (C5): "
+        f"{[p.stem for p in refused]}")
 
 
 def main() -> int:
@@ -3888,6 +4118,10 @@ def main() -> int:
         launches[kid] += n
     log(f"phase train: {time.monotonic() - t0:.1f}s; launches "
         f"{ {k: v for k, v in train_launches.items() if v} }")
+    _free()
+    t0 = time.monotonic()
+    phase_tools(dev, smi)
+    log(f"phase tools: {time.monotonic() - t0:.1f}s")
 
     rows = []
     for kid, (kname, src, replaces) in KERNELS.items():

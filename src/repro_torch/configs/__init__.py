@@ -26,6 +26,9 @@ _REGISTRY = {mod.config().name: mod for mod in (
     rwkv6_7b, llama_3_2_vision_90b, seamless_m4t_large_v2)}
 
 ARCH_IDS = sorted(_REGISTRY)
+# the dry-run's default set (``launch/dryrun.py --arch all``), as the JAX
+# package's: every config but the paper's own model
+ASSIGNED_ARCH_IDS = [a for a in ARCH_IDS if a != "llama-7b-paper"]
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -39,5 +42,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
 __all__ = [
     "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "EncoderConfig",
     "LoRAConfig", "InputShape", "INPUT_SHAPES", "LONG_CONTEXT_WINDOW",
-    "ARCH_IDS", "get_config", "get_smoke_config",
+    "ARCH_IDS", "ASSIGNED_ARCH_IDS", "get_config", "get_smoke_config",
 ]

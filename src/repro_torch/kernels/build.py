@@ -14,7 +14,11 @@ keyed by a hash of the sources and the flags, so an edit rebuilds. There
 is no fallback: without ``nvcc`` the build raises. ``launch`` calls one
 of the library's launchers on a device's current stream and raises on
 the CUDA error it returns. ``refuse_autograd`` is the wrappers' guard
-against a call that autograd would record.
+against a call that autograd would record. The library's
+``device_limits_query`` (``csrc/device.cu``) reads the card's limits
+(``launch/mesh.py:device_limits``), and ``sgmv_kernel_resources`` and
+``flash_kernel_resources`` each kernel instantiation's registers, shared
+memory and spills (``analysis/smem.py``).
 """
 from __future__ import annotations
 
@@ -82,6 +86,7 @@ def build(verbose: bool = False) -> Path:
             if proc.returncode != 0:
                 failed.append(f"{name} ({proc.returncode}):\n{report}")
             elif verbose:
+                # analysis: ignore[raw-log] the ptxas report asked for
                 print(f"nvcc {name}:\n{report}")
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -131,6 +136,13 @@ def load_library() -> ctypes.CDLL:
             lib.sgmv_cluster_occupancy.argtypes = [
                 i32, i32, i32, i32, ctypes.POINTER(i32)]
             lib.sgmv_cluster_occupancy.restype = i32
+            i64p = ctypes.POINTER(ctypes.c_longlong)
+            lib.sgmv_kernel_resources.argtypes = [i32, i32, i32, i32, i64p]
+            lib.sgmv_kernel_resources.restype = i32
+            lib.flash_kernel_resources.argtypes = [i32, i32, i32, i32, i64p]
+            lib.flash_kernel_resources.restype = i32
+            lib.device_limits_query.argtypes = [i32, i64p]
+            lib.device_limits_query.restype = i32
             _LIB = lib
         return _LIB
 
@@ -168,3 +180,4 @@ def refuse_autograd(kernel: str, *args) -> None:
                 "backward; train through the plain path (models.model."
                 "forward: einsum LoRA, common.flash_attention) or call "
                 "it under torch.no_grad()")
+

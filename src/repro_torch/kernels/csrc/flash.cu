@@ -68,6 +68,7 @@
 #include <cstdint>
 
 #include "ptx.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -559,4 +560,23 @@ extern "C" int flash_mha_launch(int dtype, const void* q, const void* k,
                             s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The resources of one B5 kernel instantiation (kernel 0: the fp32
+// kernel at tiles bq x bk and head dim hd; 1: the bf16 kernel for hd,
+// padded to 32, 64 or 128) and the dynamic shared memory its launcher
+// sets, into out[0..4]. Returns a CUDA error code.
+extern "C" int flash_kernel_resources(int kernel, int hd, int bq, int bk,
+                                      long long* out) {
+  if (hd < 1 || hd > kTile || bq < 1 || bq > kTile || bk < 1 || bk > kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kernel == 0)
+    return func_resources(flash_mha_kernel<float>, smem_bytes(bq, bk, hd),
+                          out);
+  if (kernel != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 32)
+    return func_resources(flash_mha_bf16_kernel<32>, tc_smem_bytes(32), out);
+  if (hd <= 64)
+    return func_resources(flash_mha_bf16_kernel<64>, tc_smem_bytes(64), out);
+  return func_resources(flash_mha_bf16_kernel<128>, tc_smem_bytes(128), out);
 }

@@ -144,6 +144,7 @@
 #include <cstdint>
 
 #include "ptx.cuh"
+#include "resources.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -790,7 +791,7 @@ __device__ void expand_tile_block(const T* __restrict__ h_blk, int ld,
 }
 
 // Blocks of B1 an SM must hold, as its shared memory allows: three in
-// bf16, which fits 80 registers without a spill (21 clusters of 16 at d =
+// bf16, at 80 registers with 72 bytes spilled (21 clusters of 16 at d =
 // 4096 instead of 14 at the compiler's own 128 registers: 17% faster at
 // prefill, the same at decode, on the H100); two in fp32 (at most 128
 // registers, what the compiler picks unasked; unbounded it took 140, one
@@ -1217,4 +1218,48 @@ extern "C" int sgmv_cluster_occupancy(int kernel, int dtype, int split,
              : cluster_occupancy<GeoWide<float>>(
                    sgmv_multibank_blocks_kernel<GeoWide<float>>, split,
                    clusters);
+}
+
+namespace {
+
+template <typename T>
+int kernel_resources(int kernel, int split, int block_t, long long* out) {
+  switch (kernel) {
+    case 0:
+      return func_resources(sgmv_fused_blocks_kernel<T>,
+                            GeoFused<T>::smem_bytes(split), out);
+    case 1:
+      if (!b2_block_ok(block_t)) break;
+      if (block_t <= kTileT)
+        return func_resources(sgmv_multibank_blocks_kernel<GeoBank<T>>,
+                              GeoBank<T>::smem_bytes(split), out);
+      return func_resources(sgmv_multibank_blocks_kernel<GeoWide<T>>,
+                            GeoWide<T>::smem_bytes(split), out);
+    case 2:
+      return func_resources(sgmv_shrink_kernel<T>,
+                            GeoFused<T>::smem_bytes(split), out);
+    case 3:
+      return func_resources(sgmv_expand_kernel<T>, 0, out);
+    case 4:
+      return func_resources(sgmv_multibank_shrink_kernel<T>,
+                            GeoBank<T>::smem_bytes(split), out);
+    case 5:
+      return func_resources(sgmv_multibank_expand_kernel<T>, 0, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// The resources of one SGMV kernel instantiation (kernel: 0 B1, 1 B2 at
+// block_t, 2 B3a, 3 B3b, 4 B4a, 5 B4b; dtype 0 = float32, 1 = bfloat16)
+// and the dynamic shared memory its launcher sets at the shrink split
+// `split`, into out[0..4] (func_resources). Returns a CUDA error code.
+extern "C" int sgmv_kernel_resources(int kernel, int dtype, int split,
+                                     int block_t, long long* out) {
+  if (split < 1 || split > kMaxSplit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return kernel_resources<float>(kernel, split, block_t, out);
+  if (dtype == 1) return kernel_resources<bf16>(kernel, split, block_t, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,7 +17,13 @@ scaled before the product). ``csrc/flash.cu`` states the contract.
 On a CPU tensor the wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. On every device it refuses an input
 that requires grad while grad mode is on (``build.refuse_autograd``: the
-kernel has no backward). ``flash_mha.launches`` counts kernel launches.
+kernel has no backward). ``flash_mha.launches`` counts kernel launches;
+``kept_pairs`` the (query, key) pairs its mask keeps, 4 hd FLOPs each.
+
+``flash_mha_op`` is the same call as an operator of its own,
+``torch.ops.repro_torch.flash_mha``: the model calls it, so that a
+dispatch mode sees B5 by name, and on ``meta`` tensors it gives its
+output's shape without a launch (the dry-run, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +48,16 @@ def kernel_tile(dtype, Sq: int, Sk: int, block_q: int = 128,
     if dtype == torch.bfloat16:
         return BF16_TILE
     return min(block_q, Sq), min(block_k, Sk)
+
+
+def kept_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """The (query, key) pairs of one (batch row, head) that the mask keeps:
+    all Sq x Sk non-causal, the min(i + 1, Sk) keys of query i under the
+    top-left causal mask."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + (Sq - n) * Sk
 
 
 def _default_scale(hd: int, scale):
@@ -139,3 +155,25 @@ def flash_mha(q, k, v, *, causal: bool = True, scale=None,
 
 
 flash_mha.launches = 0
+
+
+def flash_mha_op(q, k, v, *, causal: bool = True):
+    """``flash_mha(q, k, v, causal=causal)`` through the operator
+    ``torch.ops.repro_torch.flash_mha``, refused under autograd as the
+    wrapper is."""
+    refuse_autograd("flash_mha", q, k, v)
+    return _flash_mha_op(q, k, v, causal)
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_mha", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
+def _flash_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> torch.Tensor:
+    return flash_mha(q, k, v, causal=causal)
+
+
+@_flash_mha_op.register_fake
+def _flash_mha_shape(q, k, v, causal):
+    B, H, Sq, hd = q.shape
+    return q.new_empty((B, Sq, H, hd)).transpose(1, 2)

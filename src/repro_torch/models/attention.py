@@ -48,7 +48,9 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash import flash_mha
+# B5 through its operator: the wrapper's call, which a dispatch mode sees
+# by name and which gives shapes on meta (kernels/flash.py:flash_mha_op)
+from repro_torch.kernels.flash import flash_mha_op as flash_mha
 
 from .common import (NEG_INF, apply_rope, attend_cache, dense_init,
                      flash_attention, mm, rmsnorm, row_parallel_out)

@@ -89,6 +89,18 @@ def mamba2_state(cfg, batch: int, dtype=torch.float32, device="cuda",
                        device=resolve_device(device))
 
 
+def token_scan(step, carry, xs):
+    """``carry, y_t = step(carry, *(x[:, t] for x in xs))`` for t < S, each
+    x (B, S, ...); returns (the y_t stacked on dim 1, the last carry): the
+    token-serial loop of Mamba2 and RWKV-6 (the JAX package's
+    ``lax.scan``)."""
+    ys = []
+    for t in range(xs[0].shape[1]):
+        carry, y = step(carry, *(x[:, t] for x in xs))
+        ys.append(y)
+    return torch.stack(ys, dim=1), carry
+
+
 def _mamba_proj(cfg, p: Mamba2, u):
     """u: (B,S,d) -> x (B,S,H,hd), z (B,S,inner), b, c (B,S,N), a (B,S,H),
     dt (B,S,H); H and inner this rank's."""
@@ -115,13 +127,14 @@ def mamba2_full(cfg, p: Mamba2, u, state, tp=None):
     x, z, b, c, a, dt = _mamba_proj(cfg, p, u)
     dtx = (x * dt[..., None]).float()                        # (B,S,H,hd)
     b, c, a = b.float(), c.float(), a.float()
-    s = state.float()
-    ys = []
-    for t in range(u.shape[1]):
-        s = s * a[:, t, :, None, None] + \
-            dtx[:, t, :, :, None] * b[:, t, None, None, :]
-        ys.append(torch.einsum("bhdn,bn->bhd", s, c[:, t]))
-    y = torch.stack(ys, dim=1).to(u.dtype)                   # (B,S,H,hd)
+
+    def step(s, a_t, dtx_t, b_t, c_t):
+        s = s * a_t[:, :, None, None] + \
+            dtx_t[:, :, :, None] * b_t[:, None, None, :]
+        return s, torch.einsum("bhdn,bn->bhd", s, c_t)
+
+    y, s = token_scan(step, state.float(), (a, dtx, b, c))
+    y = y.to(u.dtype)                                        # (B,S,H,hd)
     return _mamba_out(cfg, p, y, z, x, tp), s.to(u.dtype)
 
 
@@ -227,15 +240,13 @@ def _rwkv_mix(p: RWKV6, x, xx, lora=None):
 def _rwkv_wkv(cfg, r, k, v, w, u, s0):
     """WKV recurrence in fp32. r/k/v/w: (B,S,H,hd); u: (H,hd) fp32; s0:
     (B,H,hd,hd) fp32. Returns (out (B,S,H,hd) fp32, state)."""
-    r, k, v, w = (t.float() for t in (r, k, v, w))
-    s = s0
-    outs = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B,H,hdk,hdv)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                                 s + u[..., None] * kv))
-        s = w[:, t, :, :, None] * s + kv
-    return torch.stack(outs, dim=1), s
+
+    def step(s, r_t, k_t, v_t, w_t):
+        kv = k_t[:, :, :, None] * v_t[:, :, None, :]         # (B,H,hdk,hdv)
+        out = torch.einsum("bhk,bhkv->bhv", r_t, s + u[..., None] * kv)
+        return w_t[:, :, :, None] * s + kv, out
+
+    return token_scan(step, s0, tuple(t.float() for t in (r, k, v, w)))
 
 
 def rwkv6_time_mix(cfg, p: RWKV6, x, state, lora=None, tp=None):

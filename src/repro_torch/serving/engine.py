@@ -292,7 +292,8 @@ class ServingEngine:
                                    lora_kernel=self.lora_kernel, tp=self.tp)
         self.prefill_dispatches += 1
         firsts = logits.argmax(dim=-1).to(torch.int32)
-        firsts_host = firsts.tolist()            # the group's one sync
+        # analysis: ignore[host-sync] the group's one sync: first tokens
+        firsts_host = firsts.tolist()
         slot_ids = [slot for slot, _ in grp]
         slots = torch.tensor(slot_ids, dtype=torch.long, device=self.device)
         self._merge_many(cache1, slot_ids, length)
@@ -404,7 +405,8 @@ class ServingEngine:
         self.last_token = self._gather_rows(
             self._decode_fn(self.last_token[self._rows]))
         self.decode_dispatches += 1
-        nxt = self.last_token.tolist()          # the iteration's one sync
+        # analysis: ignore[host-sync] the iteration's one sync (A1)
+        nxt = self.last_token.tolist()
         now = self._clock()
         if self.tracer is not None:
             attrs = self._batch_shape_attrs(active, lambda r: 1)
@@ -449,7 +451,8 @@ class ServingEngine:
         block = self._gather_rows(torch.stack(emitted))     # (k, max_batch)
         self.last_token = block[-1]
         self.decode_dispatches += 1
-        toks = block.tolist()                   # ONE sync per k tokens
+        # analysis: ignore[host-sync] ONE sync per k tokens (A1)
+        toks = block.tolist()
         now = self._clock()
         if self.tracer is not None:
             active_reqs = [r for r in self.slots if r is not None]

@@ -127,7 +127,8 @@ COPIES = {f: (f, None) for f in (
     "configs/deepseek_v2_lite_16b.py", "configs/llama4_scout_17b_16e.py",
     "configs/zamba2_7b.py", "configs/rwkv6_7b.py",
     "configs/llama_3_2_vision_90b.py", "configs/seamless_m4t_large_v2.py",
-    "serving/paging.py", "data/__init__.py", "data/pipeline.py")}
+    "serving/paging.py", "data/__init__.py", "data/pipeline.py",
+    "launch/report.py", "analysis/__init__.py", "analysis/protocol.py")}
 COPIES["core/invariants.py"] = ("analysis/protocol.py",
                                 "check_store_invariants")
 COPIES["serving/backend.py"] = ("serving/backend.py", "ServingBackend")
@@ -169,7 +170,21 @@ def _invariants_import(orig, port):
             node.module, node.level = "invariants", 1
 
 
-INTENDED = {"core/pool.py": _invariants_import}
+def _invariants_from_core(orig, port):
+    """``analysis/protocol.py``: the shared invariants are the port's one
+    copy, ``core/invariants.py``, imported in place of the definition."""
+    body = [n for n in orig.body
+            if getattr(n, "name", None) != "check_store_invariants"]
+    at = next(i for i, n in enumerate(body) if isinstance(n, ast.ImportFrom)
+              and n.module == "typing") + 1
+    body.insert(at, ast.ImportFrom(
+        module="repro_torch.core.invariants",
+        names=[ast.alias(name="check_store_invariants")], level=0))
+    orig.body[:] = body
+
+
+INTENDED = {"core/pool.py": _invariants_import,
+            "analysis/protocol.py": _invariants_from_core}
 
 
 @pytest.mark.parametrize("port_file", sorted(COPIES))
