@@ -31,7 +31,9 @@ Phases (any failure raises; the script then exits non-zero):
                versions on those copies, in bf16 and cast to fp32; times
                from CUDA events with L2 flushed between launches (the
                card held busy while the host enqueues each call), the
-               bound from the bytes and operations the call needs, and for
+               bound from the bytes and operations the call needs (B5
+               in fp32: its products as 3xTF32 at the dense TF32 rate,
+               the CUDA cores' fp32 bound printed beside it), and for
                B5 the time of ``scaled_dot_product_attention``; each line
                names the shrink split C of B1, B2, B3a and B4a, the
                expand's tile of B1, B2, B3b and B4b (``mma`` on bf16
@@ -360,7 +362,8 @@ Phases (any failure raises; the script then exits non-zero):
                roofline``.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN, so
-fp32 products run in full fp32 on both sides of every comparison.
+the plain versions' fp32 products run in full fp32; B5's fp32 kernel
+runs its own as 3xTF32 (``csrc/flash.cu``), held against them at 1e-4.
 """
 import asyncio
 import dataclasses
@@ -682,9 +685,8 @@ def _plan(kid, args, dtype, bt=BLOCK_T):
     tiles); B5's (q, kv) tile."""
     from repro_torch.kernels import flash, sgmv
     if kid == "B5":
-        q, k = args[0], args[1]
-        return "tile={}x{}".format(*flash.kernel_tile(dtype, q.shape[2],
-                                                      k.shape[2]))
+        return "tile={}x{}".format(*flash.kernel_tile(dtype,
+                                                      args[0].shape[-1]))
     plan = []
     if kid not in ("B3b", "B4b"):
         plan.append(f"split={sgmv.shrink_split(args[0].shape[1], dtype)}")
@@ -763,6 +765,12 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
         roof = _roofline(dev)
         t_bytes = byts / roof.hbm_bytes_per_s * 1e3
         t_ops = flops / roof.flops(dtype) * 1e3
+        cores = ""
+        if kid == "B5" and dtype == torch.float32:
+            # 3xTF32: three dense TF32 FLOPs a FLOP, the least time at
+            # fp32 accuracy here; the CUDA cores' bound printed beside it
+            cores = f" cuda_core_bound_ms={max(t_bytes, t_ops):.5f}"
+            t_ops = 3 * flops / roof.tf32_flops * 1e3
         bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
         lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
         plan = _plan(kid, args, dtype, _block_t(kw))
@@ -771,7 +779,7 @@ def _check_and_time(kid, layout, args0, kw, dest, flush, results):
             f"max_abs_err={err:.3e} "
             f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} "
             f"bound_ms={bound_ms:.5f} ({bound_by}: {byts} B, "
-            f"{flops} FLOP)")
+            f"{flops} FLOP){cores}")
         results[(kid, layout, dtype)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=library_ms)

@@ -6,7 +6,7 @@ TPU core's budget).
 **The geometry mirror.** Each kernel instantiation that a launcher can
 reach is a ``Launch``: its threads and ``__launch_bounds__`` minimum
 blocks an SM, the dynamic shared memory its launcher sets
-(``Geo::smem_bytes(split)`` of B1/B2/B3a/B4a, ``smem_bytes(bq, bk, hd)``
+(``Geo::smem_bytes(split)`` of B1/B2/B3a/B4a, ``f32_smem_bytes(HDP)``
 and ``tc_smem_bytes(HDP)`` of B5's two kernels) and its static
 ``__shared__`` bytes (B3b/B4b's tile). The formulas are mirrored here in
 Python; every constant they read (``kThreads``, ``kTileThreads``,
@@ -21,9 +21,9 @@ against the library's own (``sgmv_kernel_resources``,
 input widths (q, k, v: d_model; o: the heads' width) at tp 1, 2 and 4
 (the rank's d slice), each giving the shrink split C that
 ``kernels/sgmv.py:shrink_split`` picks; B2's block_t 16 (``GeoBank``),
-32 and 64 (``GeoWide``); every config's head dim for B5 (its bf16 kernel
-padded to 32, 64 or 128; its fp32 kernel at the wrapper's largest tiles,
-128 x 128); bf16 and fp32. fp32 is production here (B5's fp32 kernel
+32 and 64 (``GeoWide``); every config's head dim for B5, padded to 32,
+64 or 128 (each of its two kernels is instantiated by that pad); bf16
+and fp32. fp32 is production here (B5's fp32 kernel
 serves seamless's encoder, ROADMAP C3), so an fp32 bust is an **error**,
 not the JAX pass's warning.
 
@@ -65,8 +65,8 @@ DTYPES = {2: "bfloat16", 4: "float32"}        # itemsize -> name
 # constants each source must define (namespace-level ``constexpr int``)
 _SGMV_NAMES = ("kThreads", "kTileT", "kMaxBlockT", "kMaxRank", "kMaxSplit",
                "kKStep", "kTileCols", "kTileThreads")
-_FLASH_NAMES = ("kThreads", "kTile", "kTcThreads", "kTcRows", "kTcKeys",
-                "kRowPad")
+_FLASH_NAMES = ("kTile", "kTcThreads", "kTcRows", "kTcKeys", "kRowPad",
+                "kF32Keys", "kF32WideKeys", "kF32Pad", "kF32VPad")
 _GEOS = ("GeoFused", "GeoBank", "GeoWide")
 # kernel -> (source, C++ template of its instantiation)
 _KERNELS = {
@@ -211,9 +211,13 @@ def expand_static(c: Constants, itemsize: int) -> int:
                        c.sgmv["kMaxRank"] * (c.sgmv["kTileCols"] + pad))
 
 
-def flash_fp32_smem(bq: int, bk: int, hd: int) -> int:
-    """``smem_bytes(bq, bk, hd)``: q, a k or v tile, the scores, m, l."""
-    return 4 * (bq * (hd + 1) + bk * (hd + 1) + bq * (bk + 1) + 3 * bq)
+def flash_fp32_smem(c: Constants, hdp: int) -> int:
+    """``f32_smem_bytes(HDP)``: the q tile, two k and two v tiles of
+    ``f32_keys(HDP)`` keys (kF32WideKeys above HDP 64)."""
+    f = c.flash
+    keys = f["kF32WideKeys"] if hdp > 64 else f["kF32Keys"]
+    return 4 * ((f["kTcRows"] + 2 * keys) * (hdp + f["kF32Pad"]) +
+                2 * keys * (hdp + f["kF32VPad"]))
 
 
 def flash_bf16_smem(c: Constants, hdp: int) -> int:
@@ -304,18 +308,15 @@ def kernel_launches(c: Constants, splits: Dict[int, List[int]],
             out.append(Launch(kid, kernel, t, size, th, mb, 0,
                               expand_static(c, size),
                               query=(kidx, code, 1, 16)))
-    th, mb = _bound(c, "flash_mha_kernel", 4)
-    head_dims = [hd for hd in head_dims if hd <= tile]   # B5 refuses more
-    for hd in head_dims:
-        out.append(Launch("B5", "flash_mha_kernel", f"float hd={hd}", 4, th,
-                          mb, flash_fp32_smem(tile, tile, hd), 0, hd=hd,
-                          query=(0, hd, tile, tile)))
-    th, mb = _bound(c, "flash_mha_bf16_kernel", 2)
-    for hdp in sorted({32 if hd <= 32 else 64 if hd <= 64 else 128
-                       for hd in head_dims}):
-        out.append(Launch("B5", "flash_mha_bf16_kernel", str(hdp), 2, th, mb,
-                          flash_bf16_smem(c, hdp), 0, hd=hdp,
-                          query=(1, hdp, tile, tile)))
+    hdps = sorted({32 if hd <= 32 else 64 if hd <= 64 else 128
+                   for hd in head_dims if hd <= tile})   # B5 refuses more
+    for kernel, size, kidx, smem in (
+            ("flash_mha_kernel", 4, 0, flash_fp32_smem),
+            ("flash_mha_bf16_kernel", 2, 1, flash_bf16_smem)):
+        th, mb = _bound(c, kernel, size)
+        for hdp in hdps:
+            out.append(Launch("B5", kernel, str(hdp), size, th, mb,
+                              smem(c, hdp), 0, hd=hdp, query=(kidx, hdp)))
     return out
 
 

@@ -131,7 +131,7 @@ def load_library() -> ctypes.CDLL:
             lib.sgmv_multibank_expand_launch.restype = i32
             lib.flash_mha_launch.argtypes = [
                 i32, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
-                i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp]
+                i32, i32, i32, i32, i32, i32, ctypes.c_float, vp]
             lib.flash_mha_launch.restype = i32
             lib.sgmv_cluster_occupancy.argtypes = [
                 i32, i32, i32, i32, ctypes.POINTER(i32)]
@@ -139,7 +139,7 @@ def load_library() -> ctypes.CDLL:
             i64p = ctypes.POINTER(ctypes.c_longlong)
             lib.sgmv_kernel_resources.argtypes = [i32, i32, i32, i32, i64p]
             lib.sgmv_kernel_resources.restype = i32
-            lib.flash_kernel_resources.argtypes = [i32, i32, i32, i32, i64p]
+            lib.flash_kernel_resources.argtypes = [i32, i32, i64p]
             lib.flash_kernel_resources.restype = i32
             lib.device_limits_query.argtypes = [i32, i64p]
             lib.device_limits_query.restype = i32

@@ -1,7 +1,8 @@
 // PTX helpers shared by the port's Hopper kernels (sgmv.cu, flash.cu):
-// shared-memory addresses, 16-byte cp.async, ldmatrix and the bf16
-// m16n8k16 tensor-core product. Each source includes this header; the
-// build hashes it with the sources, so an edit here rebuilds both.
+// shared-memory addresses, 16-byte cp.async, ldmatrix, the bf16
+// m16n8k16 tensor-core product and the 3xTF32 m16n8k8 one. Each source
+// includes this header; the build hashes it with the sources, so an edit
+// here rebuilds both.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,4 +60,45 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo: low half
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// c (16 x 8, fp32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+// cvt.rna.tf32.f32's rounding, as a half-ulp add on the magnitude's bits
+// and a mask (a carry steps the exponent); the low 13 bits are 0, so the
+// result is exact as a float. Two integer operations: on an H100 SXM
+// (700 W) the cvt instruction made B5's fp32 kernel 1.5x slower, with
+// the same bits.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + (a rest below 2^-22 |x|): big = tf32(x), small =
+// tf32(x - big)
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// 3xTF32: c += a_small b_big + a_big b_small + a_big b_big, the small
+// terms first, into one fp32 accumulator (a_small b_small dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const unsigned (&a_big)[4],
+                                           const unsigned (&a_small)[4],
+                                           unsigned b0_big, unsigned b1_big,
+                                           unsigned b0_small,
+                                           unsigned b1_small) {
+  mma_tf32(c, a_small, b0_big, b1_big);
+  mma_tf32(c, a_big, b0_small, b1_small);
+  mma_tf32(c, a_big, b0_big, b1_big);
 }

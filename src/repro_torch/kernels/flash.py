@@ -9,10 +9,12 @@ Pallas kernel's is; for Sq == Sk that is ordinary causal attention, for
 Sq != Sk it differs from the JAX oracle ``flash_mha_ref``, whose mask is
 ``tril(k=Sk-Sq)``.
 
-Two kernels serve it: in bf16 one on the tensor cores (64 x 64 tiles of
-its own, p rounded to bf16 as the operand of p.v, the scale applied to
-the fp32 score), in fp32 one on CUDA cores (the wrapper's tiles; q
-scaled before the product). ``csrc/flash.cu`` states the contract.
+Two kernels serve it, both on the tensor cores with tiles of their own
+(``kernel_tile``): in bf16, p rounded to bf16 as the operand of p.v and
+the scale applied to the fp32 score; in fp32, q scaled before the
+product and both products as 3xTF32 (each operand split into two TF32
+halves, three TF32 products summed in fp32). ``csrc/flash.cu`` states
+the contract. Both need 16-byte aligned rows of q, k and v.
 
 On a CPU tensor the wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises. On every device it refuses an input
@@ -37,17 +39,19 @@ from .build import refuse_autograd
 NEG_INF = -1e30                          # the Pallas kernel's sentinel
 MAX_TILE = 128                           # block_q, block_k and hd
 BF16_TILE = (64, 64)                     # the bf16 kernel's (q, kv) tile
+F32_ROWS, F32_KEYS, F32_WIDE_KEYS = 64, 64, 32   # the fp32 kernel's
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 8}   # elements in 16 B
 _CARD = "cuda"                           # the device type it runs on
 
 
-def kernel_tile(dtype, Sq: int, Sk: int, block_q: int = 128,
-                block_k: int = 128):
-    """The (q rows, keys) tile the kernel of ``dtype`` runs: its own in
-    bf16, min(block, S) from the wrapper's arguments in fp32."""
+def kernel_tile(dtype, hd: int):
+    """The (q rows, keys) tile the kernel of ``dtype`` runs at head dim
+    ``hd``: 64 x 64 in bf16; in fp32 64 x 64 where hd pads to 32 or 64
+    and 64 x 32 where it pads to 128."""
     if dtype == torch.bfloat16:
         return BF16_TILE
-    return min(block_q, Sq), min(block_k, Sk)
+    return F32_ROWS, F32_WIDE_KEYS if hd > 64 else F32_KEYS
 
 
 def kept_pairs(Sq: int, Sk: int, causal: bool) -> int:
@@ -113,15 +117,15 @@ def _check(q, k, v, block_q, block_k):
     for name, b in (("block_q", block_q), ("block_k", block_k)):
         if not 1 <= b <= MAX_TILE:
             raise ValueError(f"{name}={b} outside 1..{MAX_TILE}")
-    if q.dtype == torch.bfloat16:
-        # 16-byte cp.async loads: every row of q, k and v starts aligned
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-                raise ValueError(
-                    f"{name}: the bf16 kernel needs 16-byte aligned rows "
-                    f"(data_ptr % 16 == 0, strides[:3] multiples of 8), "
-                    f"got data_ptr % 16 = {t.data_ptr() % 16}, strides "
-                    f"{tuple(t.stride())}")
+    # 16-byte cp.async loads: every row of q, k and v starts aligned
+    per16 = _ROW_ALIGN[q.dtype]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: the {str(q.dtype)[6:]} kernel needs 16-byte "
+                f"aligned rows (data_ptr % 16 == 0, strides[:3] multiples "
+                f"of {per16}), got data_ptr % 16 = {t.data_ptr() % 16}, "
+                f"strides {tuple(t.stride())}")
 
 
 def flash_mha(q, k, v, *, causal: bool = True, scale=None,
@@ -129,10 +133,10 @@ def flash_mha(q, k, v, *, causal: bool = True, scale=None,
     """B5. q: (B, H, Sq, hd); k, v: (B, H, Sk, hd), any strides with a
     unit stride on hd (a (B, S, H, hd) tensor's ``transpose(1, 2)`` is
     read in place); hd at most 128. ``block_q`` and ``block_k`` (each
-    1..128, validated for both types) tile the fp32 kernel: min(block_q,
-    Sq) queries and min(block_k, Sk) keys. The bf16 kernel runs its own
-    64 x 64 tiles (``BF16_TILE``) and needs 16-byte aligned rows (data
-    pointer and the strides over (B, H, S)); the wrapper raises otherwise.
+    1..128) are the JAX signature's and are validated only: each kernel
+    runs its own tiles (``kernel_tile``). Both kernels need 16-byte
+    aligned rows (the data pointer, and the strides over (B, H, S)
+    multiples of 4 in fp32, 8 in bf16); the wrapper raises otherwise.
     Returns (B, H, Sq, hd) in q's type; on CUDA its memory is laid out
     (B, Sq, H, hd), so ``out.transpose(1, 2)`` is contiguous."""
     refuse_autograd("flash_mha", q, k, v)
@@ -148,8 +152,7 @@ def flash_mha(q, k, v, *, causal: bool = True, scale=None,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     _launch("flash_mha_launch", q.device, _DTYPE_CODE[q.dtype], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, B, H, Sq,
-            Sk, hd, min(block_q, Sq), min(block_k, Sk), int(causal),
-            float(scale))
+            Sk, hd, int(causal), float(scale))
     flash_mha.launches += 1
     return out
 

@@ -1,4 +1,5 @@
-"""Time the SGMV kernels of several source trees of the port in one call.
+"""Time the SGMV kernels and B5 of several source trees of the port in one
+call.
 
     python -m repro_torch.launch.kernel_ab ROOT [ROOT ...]
 
@@ -17,7 +18,13 @@ bf16 inputs at llama-7b-paper's widths (d = d_out = 4096, bucket ranks
   block spare (the launch's floor);
 * B4a at decode and prefill at tp = 2 (d 2048), and at decode at d 4096,
   with B4b on its output;
-* B1 and B3a on a padded bank (rank 128) at decode and prefill.
+* B1 and B3a on a padded bank (rank 128) at decode and prefill;
+* B5 in fp32 at every shape ``chip_smoke.py`` times it (llama-7b-paper,
+  stablelm, zamba2, seamless's encoder, cross and decoder, the tp = 2
+  calls), each output held against ``flash_mha_plain`` at 1e-4 (a
+  tree past it is still timed, its errors printed, and the run exits
+  1), and SDPA in fp32 on the same inputs, a yardstick each tree times
+  alike.
 
 A tree whose wrappers take ``block_live`` gets the blocks' live-row
 counts. Times: median of 30 launches over CUDA events, 128 MB written
@@ -123,12 +130,38 @@ for name, T, buckets, sizes in (("decode", 8, [0, 1, 2, 3, 4, 0, 1, 2],
     out[f"B1 {name}"] = ms(
         lambda: sgmv.sgmv_fused_blocks(xp, Ap, Bp, ba, **kw))
     out[f"B3a {name}"] = ms(lambda: sgmv.sgmv_shrink(xp, Ap, ba, **kw))
+from repro_torch.kernels import flash
+import torch.nn.functional as F
+errs = {}
+for name, (B, H, Sq, Sk, hd, causal) in {
+        "llama hd128": (2, 32, 1000, 1000, 128, True),
+        "stablelm hd64": (1, 32, 1000, 1000, 64, True),
+        "zamba2 hd112": (2, 32, 1000, 1000, 112, True),
+        "seamless enc": (2, 16, 1024, 1024, 64, False),
+        "seamless cross": (2, 16, 1000, 1024, 64, False),
+        "seamless dec": (2, 16, 1000, 1000, 64, True),
+        "tp2 enc": (4, 8, 1024, 1024, 64, False),
+        "tp2 cross": (4, 8, 128, 1024, 64, False),
+        "tp2 zamba2": (4, 16, 128, 128, 112, True),
+        "tp2 dec": (4, 8, 128, 128, 64, True)}.items():
+    q, k, v = (torch.randn(B, S, H, hd, generator=g).to(dev).transpose(1, 2)
+               for S in (Sq, Sk, Sk))
+    o = flash.flash_mha(q, k, v, causal=causal)
+    ref = flash.flash_mha_plain(q, k, v, causal=causal)
+    errs[name] = (o - ref).abs().max().item()
+    if not torch.allclose(o, ref, atol=1e-4, rtol=1e-4):
+        print(f"B5 fp32 {name} misses 1e-4: max abs err {errs[name]}")
+    out[f"B5 fp32 {name}"] = ms(
+        lambda: flash.flash_mha(q, k, v, causal=causal))
+    out[f"SDPA fp32 {name}"] = ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+print("B5 fp32 max abs err " + json.dumps(errs), flush=True)
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
 def main(roots) -> int:
-    rows = []
+    rows, missed = [], False
     for root in roots:
         proc = subprocess.run([sys.executable, "-c", _CHILD, root],
                               capture_output=True, text=True)
@@ -139,6 +172,9 @@ def main(roots) -> int:
             return 1
         rows.append(json.loads(line[0][len("RESULT "):]))
         print(root, rows[-1], flush=True)
+        b5 = [ln for ln in proc.stdout.splitlines() if ln.startswith("B5 ")]
+        missed |= any("misses" in ln for ln in b5)
+        print(root, *b5, flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
@@ -146,7 +182,7 @@ def main(roots) -> int:
     for key in sorted(set().union(*rows)):
         print(f"{key:28s} " + "  ".join(
             f"{r[key]:.4f}" if key in r else "   -  " for r in rows))
-    return 0
+    return 1 if missed else 0
 
 
 if __name__ == "__main__":

@@ -183,12 +183,15 @@ def device_limits(device="cuda") -> DeviceLimits:
 @dataclasses.dataclass(frozen=True)
 class Roofline:
     """A part's published peaks: HBM bytes/s, FLOP/s by type (dense, no
-    sparsity), and the bytes/s of its peer link, with the source and the
+    sparsity; fp32 on the CUDA cores), the dense TF32 tensor-core rate
+    (a kernel that runs fp32 products as 3xTF32 needs three TF32 FLOPs
+    a FLOP), and the bytes/s of its peer link, with the source and the
     power limit read beside them (the peaks assume the part's full
     limit)."""
     name: str
     hbm_bytes_per_s: float
     peak_flops: dict              # torch dtype -> FLOP/s
+    tf32_flops: float             # dense TF32 on the tensor cores
     link_bytes_per_s: float
     link: str                     # what the link figure is
     source: str
@@ -205,7 +208,7 @@ PARTS = {
         name="NVIDIA H100 80GB HBM3", hbm_bytes_per_s=3.35e12,
         peak_flops={torch.bfloat16: 989e12, torch.float16: 989e12,
                     torch.float32: 67e12},
-        link_bytes_per_s=900e9,
+        tf32_flops=495e12, link_bytes_per_s=900e9,
         link="NVLink 4, the data sheet's 900 GB/s a card (18 links, "
              "both directions)",
         source="NVIDIA H100 Tensor Core GPU data sheet, SXM part"),

@@ -374,7 +374,8 @@ def test_mirror_constants_are_the_sources():
     for name, value in consts.sgmv.items():
         if name in smem._SGMV_NAMES:
             assert f"constexpr int {name} = {value};" in sg
-    for name in ("kTcThreads", "kTcRows", "kTcKeys", "kRowPad", "kTile"):
+    for name in ("kTcThreads", "kTcRows", "kTcKeys", "kRowPad", "kTile",
+                 "kF32Keys", "kF32WideKeys", "kF32Pad", "kF32VPad"):
         assert f"constexpr int {name} = {consts.flash[name]};" in fl
     assert "constexpr int kPad = sizeof(T) == 2 ? " \
         f"{consts.pad[2]} : {consts.pad[4]};" in sg
@@ -395,7 +396,7 @@ def test_mirror_constants_are_the_sources():
         "sgmv_expand_kernel": ("kTileThreads", "1"),
         "sgmv_multibank_shrink_kernel": ("kThreads", "2"),
         "sgmv_multibank_expand_kernel": ("kTileThreads", "1"),
-        "flash_mha_kernel": ("kThreads", "1"),
+        "flash_mha_kernel": ("kTcThreads", "2"),
         "flash_mha_bf16_kernel": ("kTcThreads", "1")}
 
 
@@ -407,8 +408,13 @@ def test_the_envelope_covers_every_kernel_split_and_type():
         assert {ln.split for ln in launches if ln.kid == "B1"
                 and ln.itemsize == size} == {4, 8, 16}
     assert {ln.block_t for ln in launches if ln.kid == "B2"} == {16, 32, 64}
-    assert {ln.hd for ln in launches if ln.kernel ==
-            "flash_mha_bf16_kernel"} == {64, 128}
+    for kernel in ("flash_mha_kernel", "flash_mha_bf16_kernel"):
+        assert {ln.hd for ln in launches if ln.kernel == kernel} == {64, 128}
+    b5 = {ln.hd: ln for ln in launches if ln.kernel == "flash_mha_kernel"}
+    # q, two k and two v tiles: 64 keys at HDP 64, 32 at HDP 128
+    assert b5[64].dynamic == 4 * (192 * 80 + 128 * 68) == 96256
+    assert b5[128].dynamic == 4 * (128 * 144 + 64 * 132) == 107520
+    assert (b5[128].threads, b5[128].min_blocks) == (128, 2)
     b1 = next(ln for ln in launches if ln.kid == "B1" and ln.itemsize == 2
               and ln.split == 16)
     assert (b1.threads, b1.min_blocks, b1.dynamic) == (256, 3, 47872)

@@ -1,6 +1,6 @@
 """PyTorch port, the plans of the redesigned kernels: B1's shrink split
 over a thread-block cluster (shared by B2, B3a and B4a) and B5's bf16
-tensor-core numerics, checked without a card.
+and fp32 tensor-core numerics, checked without a card.
 
 * ``shrink_split(d, dtype)`` is the one place that decides the cluster
   size C; every wrapper of the shared shrink passes its value to the
@@ -13,8 +13,13 @@ tensor-core numerics, checked without a card.
   (``test_kernels_flash.py``): rounding p to bf16 as the operand of p.v
   moves an output by at most 2^-9 of the weighted sum of |v|, well
   inside it.
+* B5's fp32 kernel's 3xTF32 arithmetic (``cvt.rna`` rounding on the
+  bits, its kv tiles in order) emulated in torch and held against the
+  Pallas kernel in fp32 and the plain version at 1e-4, the card's fp32
+  tolerance: 3xTF32 keeps about fp32's own accuracy (the dropped small
+  x small term is below 2^-22 of a product).
 * B5's wrapper refuses, before any launch, a head dim over 128 and, for
-  the bf16 kernel, rows that are not 16-byte aligned.
+  either kernel, rows that are not 16-byte aligned.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -320,6 +325,107 @@ def test_bf16_flash_emulation_within_the_card_tolerance_of_plain(B, H, Sq,
 
 
 # ---------------------------------------------------------------------------
+# B5's fp32 numerics (3xTF32), emulated in torch, against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on the bits: the 13 low mantissa bits rounded
+    off to nearest, ties away from zero (a half-ulp add on the magnitude,
+    then truncation; the carry may step the exponent)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as the fp32 kernel's mma: each operand split into big =
+    tf32(x) and small = tf32(x - big), the small terms first, a_small
+    b_small dropped (the sum order inside an mma is the tensor core's)."""
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    a_small, b_small = tf32_rna(a - a_big), tf32_rna(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def flash_fp32_emulation(q, k, v, *, causal=True, scale=None):
+    """The fp32 kernel's arithmetic: q scaled in fp32 first; kv tiles of
+    ``kernel_tile(float32, hd)`` keys in order; s = q_scaled k^T and p v
+    as 3xTF32 products; running max from the -1e30 sentinel; masked
+    scores weigh 0; l sums the fp32 p; o = acc / max(l, 1e-30)."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / hd ** 0.5
+    keys = tflash.kernel_tile(torch.float32, hd)[1]
+    qs = q.float() * scale
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, H, Sq, 1), tflash.NEG_INF)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, hd))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, keys):
+        kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        valid = qpos >= kpos if causal else torch.ones_like(qpos >= kpos)
+        s = torch.where(valid, mm_3xtf32(qs, kt.transpose(-1, -2)),
+                        tflash.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + mm_3xtf32(p, vt)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1 << 13                      # a tf32 ulp at exponent 0, in bits
+    base = torch.tensor([1.0], dtype=torch.float32).view(torch.int32)
+    cases = {0x0FFF: 0, 0x1000: one, 0x1001: one, 0x17FF: one,
+             0x1FFF: one, 0x3000: 2 * one}     # 0x3000: 1.5 ulps, a tie
+    for low, up in cases.items():
+        for sign in (1, -1):
+            x = (base + low).view(torch.float32) * sign
+            want = (base + up).view(torch.float32) * sign
+            assert tf32_rna(x).item() == want.item(), (hex(low), sign)
+    # the carry steps the exponent: the largest mantissa rounds to 2.0
+    top = (base + 0x7FFFFF).view(torch.float32)
+    assert tf32_rna(top).item() == 2.0
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096).astype(np.float32))
+    big = tf32_rna(x)
+    assert (big.view(torch.int32) & 0x1FFF == 0).all()
+    assert ((x - big).abs() <= x.abs() * 2.0 ** -11).all()
+    split = big + tf32_rna(x - big)
+    assert ((x - split).abs() <= x.abs() * 2.0 ** -21).all()
+
+
+FP32_FLASH_CASES = [      # (B, H, Sq, Sk, hd): 64-key tiles at hd 64,
+    (1, 2, 100, 100, 64),     # 32-key tiles at 112 and 128
+    (2, 1, 70, 130, 64),      # Sq < Sk, a ragged last tile
+    (1, 2, 97, 45, 112),      # Sq > Sk, hd padded to 128
+    (1, 1, 130, 70, 128),     # three q tiles, a partial kv tile
+]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd", FP32_FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp32_flash_emulation_matches_pallas_and_plain(B, H, Sq, Sk, hd,
+                                                       causal):
+    """The emulated 3xTF32 kernel against the Pallas kernel (fp32,
+    interpret mode; top-left causal mask like the port's) and against
+    ``flash_mha_plain``, both at the fp32 tolerance ``chip_smoke.py``
+    holds the kernel to (1e-4)."""
+    q, k, v = _flash_inputs(B, H, Sq, Sk, hd, B * 1000 + Sq + Sk + causal)
+    oj = jax_flash_mha(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                       interpret=True)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    ot = flash_fp32_emulation(qt, kt, vt, causal=causal)
+    assert ot.dtype == torch.float32 and ot.shape == (B, H, Sq, hd)
+    np.testing.assert_allclose(_np(ot), _np(oj), atol=1e-4, rtol=1e-4)
+    ref = tflash.flash_mha_plain(qt, kt, vt, causal=causal)
+    np.testing.assert_allclose(_np(ot), _np(ref), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # B5's refusals, before any launch
 # ---------------------------------------------------------------------------
 
@@ -350,11 +456,15 @@ def test_flash_refuses_a_head_dim_over_128(fake_flash_card, dtype):
     assert fake_flash_card == []
 
 
-@pytest.mark.parametrize("which", ["q", "k", "v"])
-def test_bf16_flash_refuses_misaligned_rows(fake_flash_card, which):
-    """A row stride of 132 bf16 (264 bytes) breaks 16-byte cp.async."""
-    ok = _bshd(1, 8, 2, 128, torch.bfloat16)
-    bad = _bshd(1, 8, 2, 128, torch.bfloat16, pad=4)
+@pytest.mark.parametrize("which,dtype", [
+    pytest.param(w, dt, id=w + ("" if dt == torch.bfloat16 else "-float32"))
+    for dt in (torch.bfloat16, torch.float32) for w in "qkv"])
+def test_bf16_flash_refuses_misaligned_rows(fake_flash_card, which, dtype):
+    """Rows 8 bytes off 16-byte alignment break 16-byte cp.async in both
+    kernels: a row stride of 132 bf16 (264 bytes) or 130 fp32 (520)."""
+    pad = 4 if dtype == torch.bfloat16 else 2
+    ok = _bshd(1, 8, 2, 128, dtype)
+    bad = _bshd(1, 8, 2, 128, dtype, pad=pad)
     args = {n: bad if n == which else ok for n in "qkv"}
     with pytest.raises(ValueError, match="16-byte aligned"):
         tflash.flash_mha(args["q"], args["k"], args["v"])
@@ -362,17 +472,25 @@ def test_bf16_flash_refuses_misaligned_rows(fake_flash_card, which):
 
 
 def test_fp32_flash_takes_what_bf16_refuses(fake_flash_card):
-    """The fp32 kernel reads element by element: the same strides launch,
-    with the wrapper's tiles; the bf16 launch carries its dtype code."""
-    bad = _bshd(1, 40, 2, 128, torch.float32, pad=4)
-    tflash.flash_mha(bad, bad, bad, block_q=32, block_k=16)
+    """A row stride of 132 elements is 528 bytes in fp32, 16-byte
+    aligned: the fp32 kernel launches where the bf16 one (264 bytes)
+    refuses. Each launch carries its dtype code and no tile: each kernel
+    runs its own (``kernel_tile``), whatever block_q and block_k say."""
+    rows = _bshd(1, 40, 2, 128, torch.float32, pad=4)
+    tflash.flash_mha(rows, rows, rows, block_q=32, block_k=16)
+    bad16 = _bshd(1, 40, 2, 128, torch.bfloat16, pad=4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash.flash_mha(bad16, bad16, bad16)
     ok = _bshd(1, 40, 2, 128, torch.bfloat16)
     tflash.flash_mha(ok, ok, ok)
     (a32, a16) = fake_flash_card
-    assert a32[0] == 0 and a32[11:13] == (32, 16)  # the wrapper's tiles
-    assert a16[0] == 1
-    assert tflash.kernel_tile(torch.bfloat16, 1000, 1000) == (64, 64)
-    assert tflash.kernel_tile(torch.float32, 1000, 20) == (128, 20)
+    assert a32[0] == 0 and a16[0] == 1
+    # B, H, Sq, Sk, hd, causal, scale: the tiles are not arguments
+    assert a32[6:11] == (1, 2, 40, 40, 128) and len(a32) == 13
+    assert tflash.kernel_tile(torch.bfloat16, 128) == (64, 64)
+    assert tflash.kernel_tile(torch.float32, 64) == (64, 64)
+    assert tflash.kernel_tile(torch.float32, 112) == (64, 32)
+    assert tflash.kernel_tile(torch.float32, 128) == (64, 32)
 
 
 def test_flash_block_sizes_are_validated_for_both_types(fake_flash_card):

@@ -368,6 +368,7 @@ def test_roofline_holds_the_data_sheet_and_refuses_other_parts():
     assert roof.hbm_bytes_per_s == 3.35e12
     assert roof.flops(torch.bfloat16) == 989e12
     assert roof.flops(torch.float32) == 67e12
+    assert roof.tf32_flops == 495e12
     assert roof.link_bytes_per_s == 900e9 and "NVLink" in roof.link
     with pytest.raises(ValueError, match="NVIDIA A100-SXM4-80GB"):
         mesh.roofline_of("NVIDIA A100-SXM4-80GB")
