@@ -1,0 +1,6 @@
+"""Every output token the engine emitted inside the window, over the
+window (tokens/s), in the cells whose pace the card sets."""
+
+
+def read(ctx):
+    return sum(r.out_close - r.out_open for r in ctx.records) / ctx.window_s
