@@ -47,6 +47,7 @@ from repro_torch.kernels.sgmv import (sgmv_expand, sgmv_multibank_expand,
 from repro_torch.models.common import (all_gather_, all_reduce_,
                                        rows_to_tokens, tokens_to_rows,
                                        tp_size)
+from repro_torch.obs import host as obs_host
 
 
 def _local_x(x, A, tp):
@@ -185,7 +186,9 @@ def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
             y = all_gather_(y, tp)
         return y
 
-    return cb
+    # inside a traced launch every call of the hook counts as "lora"
+    parts = obs_host.PARTS
+    return cb if parts is None else parts.timed("lora", cb)
 
 
 def apply_bank_sgmv(x, bank, name: str, layer: int, token_adapter, *,

@@ -84,6 +84,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.lora.batched import make_lora_cb
+from repro_torch.obs import host as obs_host
 
 from .attention import (CrossAttention, GQAAttention, MLAAttention,
                         cross_attend, cross_kv, gqa_decode, gqa_full,
@@ -358,24 +359,33 @@ def _dense_block_full(cfg, bp: DenseBlock, x, window, lora, tp,
     # positions None: the prefill's arange(S), which lets MHA attention
     # take kernel B5 (unless flash_kernel is False)
     attn = mla_full if cfg.mla is not None else gqa_full
+    parts = obs_host.PARTS
+    if parts is not None:
+        attn = parts.timed("attention", attn)
     h, kv = attn(cfg, bp.attn, rmsnorm(x, bp.ln1, cfg.rmsnorm_eps),
                  window=window, lora=lora, tp=tp, flash_kernel=flash_kernel)
     x = x + h
-    f, aux = _ffn(cfg, bp, x, tp)
+    f, aux = (_ffn if parts is None else parts.timed("ffn", _ffn))(
+        cfg, bp, x, tp)
     return x + f, kv, aux
 
 
 def _dense_block_decode(cfg, bp: DenseBlock, x, kc, vc, pos, window, lora,
                         tp, mla_absorbed=False):
     xn = rmsnorm(x, bp.ln1, cfg.rmsnorm_eps)
+    attn = mla_decode if cfg.mla is not None else gqa_decode
+    parts = obs_host.PARTS
+    if parts is not None:
+        attn = parts.timed("attention", attn)
     if cfg.mla is not None:
-        h, _ = mla_decode(cfg, bp.attn, xn, kc, vc, pos, window=window,
-                          lora=lora, absorbed=mla_absorbed, tp=tp)
+        h, _ = attn(cfg, bp.attn, xn, kc, vc, pos, window=window,
+                    lora=lora, absorbed=mla_absorbed, tp=tp)
     else:
-        h, _ = gqa_decode(cfg, bp.attn, xn, kc, vc, pos, window=window,
-                          lora=lora, tp=tp)
+        h, _ = attn(cfg, bp.attn, xn, kc, vc, pos, window=window,
+                    lora=lora, tp=tp)
     x = x + h
-    return x + _ffn(cfg, bp, x, tp)[0]
+    return x + (_ffn if parts is None else parts.timed("ffn", _ffn))(
+        cfg, bp, x, tp)[0]
 
 
 def _cross_block(cfg, bp: CrossBlock, x, kc, vc, tp, flash_kernel=True):
@@ -500,8 +510,11 @@ def _run_dense_full(cfg, params: DenseLM, x, cache, *, window, bank,
                     lora_idx, lora_kernel, tp, remat=False,
                     flash_kernel=True):
     aux = 0.0
+    parts = obs_host.PARTS
+    bind = _layer_lora if parts is None else parts.timed("lora",
+                                                         _layer_lora)
     for i, bp in enumerate(params.blocks):
-        lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
+        lora = bind(cfg, bank, i, lora_idx, lora_kernel, tp)
         x, kv, a = _remat(remat, functools.partial(
             _dense_block_full, cfg, bp, window=window, lora=lora, tp=tp,
             flash_kernel=flash_kernel), x)
@@ -694,14 +707,19 @@ def prefill(cfg, params: BaseLM, tokens, *, frontend=None, bank=None,
     cache["pos"] = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
     h_last = rmsnorm(x[:, -1], params.ln_f, cfg.rmsnorm_eps)
-    return _logits(cfg, params, h_last, tp), cache
+    parts = obs_host.PARTS
+    return (_logits if parts is None else parts.timed("logits", _logits))(
+        cfg, params, h_last, tp), cache
 
 
 def _decode_dense(cfg, params: DenseLM, cache, x, pos, *, window, bank,
                   lora_idx, lora_kernel, tp, mla_absorbed):
     ka, kb = _cache_keys(cfg)
+    parts = obs_host.PARTS
+    bind = _layer_lora if parts is None else parts.timed("lora",
+                                                         _layer_lora)
     for i, bp in enumerate(params.blocks):
-        lora = _layer_lora(cfg, bank, i, lora_idx, lora_kernel, tp)
+        lora = bind(cfg, bank, i, lora_idx, lora_kernel, tp)
         x = _dense_block_decode(cfg, bp, x, cache[ka][i], cache[kb][i],
                                 pos, window, lora, tp, mla_absorbed)
     return x
@@ -788,4 +806,6 @@ def decode_step(cfg, params: BaseLM, cache, tokens, *, bank=None,
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     h_last = rmsnorm(x[:, 0], params.ln_f, cfg.rmsnorm_eps)
-    return _logits(cfg, params, h_last, tp), new_cache
+    parts = obs_host.PARTS
+    return (_logits if parts is None else parts.timed("logits", _logits))(
+        cfg, params, h_last, tp), new_cache

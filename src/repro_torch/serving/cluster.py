@@ -294,6 +294,7 @@ class LoRAServeCluster:
         self._slo_bad = False
         self._tracer_adv = None
         self._record_spans = None
+        self._poll_spans = None
         if tracer is not None:
             from repro_torch.cluster.costmodel import ServerModel
             from repro_torch.obs import CostModelDrift, record_request_spans
@@ -310,6 +311,9 @@ class LoRAServeCluster:
             # virtual substrate: keep the tracer's event clock at the
             # facade's notion of now (cheap no-op for wall clocks)
             self._tracer_adv = getattr(tracer.clock, "advance", None)
+            # the port's host spans: `poll` and the clock snapshots
+            from repro_torch.obs.host import poll_spans
+            self._poll_spans = poll_spans(tracer, backend, self.clock)
         self._seed_backend()
         # running peaks across rebalances (the store GCs lazily, so the
         # end-of-run state understates what a server actually held)
@@ -861,6 +865,8 @@ class LoRAServeCluster:
             now = self.clock()
         if self._tracer_adv is not None:
             self._tracer_adv(now)
+        if self._poll_spans is not None:
+            self._poll_spans.open()
         events: List[ClusterEvent] = []
         ctrl = self.controller
         # chaos plane first: due faults land, then heartbeats + the
@@ -926,6 +932,8 @@ class LoRAServeCluster:
         self._finish_retiring(now)
         self._now = max(self._now, now)
         self._end_time = max(self._end_time, self._now)
+        if self._poll_spans is not None:
+            self._poll_spans.close()
         return events
 
     def _next_time(self, now: float, arrivals_left: bool,

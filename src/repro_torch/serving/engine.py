@@ -83,12 +83,17 @@ from repro_torch.lora.adapter import Adapter, bank_layers
 from repro_torch.lora.bank import build_bank, rank_bucket
 from repro_torch.models import model as M
 from repro_torch.models.common import all_gather_
+from repro_torch.obs import host as obs_host
 
 from .metrics import MetricsCollector
 from .paging import UnifiedPagePool
 from .sharding import make_engine_sharding, slot_rows
 
 Request = ServeRequest
+
+
+def _argmax(logits):
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 class ServingEngine:
@@ -259,6 +264,11 @@ class ServingEngine:
             self._prefill_group(length, grp)
         # slot -> (bucket, local) bank indices once per admit pass
         self._slot_lora = self._rows_lora()
+        if self.tracer is not None:
+            self.tracer.record("admit", now, self._clock(), cat="host",
+                               track=self._track,
+                               attrs={"requests": len(take),
+                                      "groups": len(groups)})
 
     def _batch_shape_attrs(self, reqs, value) -> dict:
         """Span attrs describing a batch's rank shape: ``max_rank`` plus,
@@ -280,20 +290,30 @@ class ServingEngine:
         if self.page_pool is not None:
             for ai, (_, req) in zip(aidx, grp):
                 self._page_in(req, ai, length)
-        toks = torch.tensor([req.prompt for _, req in grp],
-                            dtype=torch.int32, device=self.device)
-        aidx_t = torch.tensor(aidx, dtype=torch.int32, device=self.device)
-        logits, cache1 = M.prefill(self.cfg, self.params, toks,
-                                   frontend=self.zero_frontend(n),
-                                   bank=self.bank,
-                                   lora_idx=self.lora_bank.lora_idx(aidx_t),
-                                   cache_len=self.max_len,
-                                   cache_dtype=torch.float32,
-                                   lora_kernel=self.lora_kernel, tp=self.tp)
-        self.prefill_dispatches += 1
-        firsts = logits.argmax(dim=-1).to(torch.int32)
+        parts = None if self.tracer is None else \
+            obs_host.open_parts(self._clock)
+        try:
+            toks = torch.tensor([req.prompt for _, req in grp],
+                                dtype=torch.int32, device=self.device)
+            aidx_t = torch.tensor(aidx, dtype=torch.int32,
+                                  device=self.device)
+            logits, cache1 = M.prefill(
+                self.cfg, self.params, toks, frontend=self.zero_frontend(n),
+                bank=self.bank, lora_idx=self.lora_bank.lora_idx(aidx_t),
+                cache_len=self.max_len, cache_dtype=torch.float32,
+                lora_kernel=self.lora_kernel, tp=self.tp)
+            self.prefill_dispatches += 1
+            firsts = (_argmax if parts is None
+                      else parts.timed("logits", _argmax))(logits)
+        finally:
+            if parts is not None:
+                obs_host.close_parts()
+        if parts is not None:
+            t_launch = self._clock()
         # analysis: ignore[host-sync] the group's one sync: first tokens
         firsts_host = firsts.tolist()
+        if parts is not None:
+            t_sync = self._clock()
         slot_ids = [slot for slot, _ in grp]
         slots = torch.tensor(slot_ids, dtype=torch.long, device=self.device)
         self._merge_many(cache1, slot_ids, length)
@@ -314,6 +334,9 @@ class ServingEngine:
             attrs.update(tokens=n * length, batch=n)
             self.tracer.record("prefill", t0, t, cat="iteration",
                                track=self._track, attrs=attrs)
+            self._record_split("prefill", t0, t_launch, t_sync, parts)
+            self.tracer.record("prefill.merge", t_sync, t, cat="host",
+                               track=self._track, attrs={})
 
     def zero_frontend(self, n: int):
         """The frontend of a prefill group of ``n`` rows: the JAX engine's
@@ -385,11 +408,28 @@ class ServingEngine:
 
     def _decode_fn(self, tokens):
         """One decode step of this replica's slot rows: their next tokens."""
+        parts = obs_host.PARTS
         logits, self.cache = M.decode_step(
             self.cfg, self.params, self.cache, tokens, bank=self.bank,
             lora_idx=self._slot_lora, lora_kernel=self.lora_kernel,
             tp=self.tp)
-        return logits.argmax(dim=-1).to(torch.int32)
+        return (_argmax if parts is None
+                else parts.timed("logits", _argmax))(logits)
+
+    def _record_split(self, name, t0, t_launch, t_sync, parts) -> None:
+        """The first host spans of an iteration span that starts at t0:
+        ``<name>.launch`` to ``t_launch``, which enqueues the work and
+        carries the model parts' host self times, then ``<name>.sync`` to
+        ``t_sync``, the wait for its tokens."""
+        self.tracer.record(f"{name}.launch", t0, t_launch, cat="host",
+                           track=self._track, attrs=parts.attrs())
+        self.tracer.record(f"{name}.sync", t_launch, t_sync, cat="host",
+                           track=self._track, attrs={})
+
+    def _record_finish(self, t0, tokens: int) -> None:
+        """``finish``: the token bookkeeping after a decode span."""
+        self.tracer.record("finish", t0, self._clock(), cat="host",
+                           track=self._track, attrs={"tokens": tokens})
 
     def _gather_rows(self, toks):
         """Every replica's slot rows' tokens side by side along the last
@@ -402,9 +442,17 @@ class ServingEngine:
             return
         t0 = self._clock()
         active = [r for r in self.slots if r is not None]
-        self.last_token = self._gather_rows(
-            self._decode_fn(self.last_token[self._rows]))
+        parts = None if self.tracer is None else \
+            obs_host.open_parts(self._clock)
+        try:
+            self.last_token = self._gather_rows(
+                self._decode_fn(self.last_token[self._rows]))
+        finally:
+            if parts is not None:
+                obs_host.close_parts()
         self.decode_dispatches += 1
+        if parts is not None:
+            t_launch = self._clock()
         # analysis: ignore[host-sync] the iteration's one sync (A1)
         nxt = self.last_token.tolist()
         now = self._clock()
@@ -413,10 +461,13 @@ class ServingEngine:
             attrs.update(batch=len(active), steps=1, iters=1)
             self.tracer.record("decode", t0, now, cat="iteration",
                                track=self._track, attrs=attrs)
+            self._record_split("decode", t0, t_launch, now, parts)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
             self._finish_token(slot, req, nxt[slot], now)
+        if self.tracer is not None:
+            self._record_finish(now, len(active))
         self._iter += 1
 
     # -- multi-token decode steps ---------------------------------------
@@ -438,19 +489,27 @@ class ServingEngine:
             left[slot] = max(1, min(req.max_new_tokens - len(req.output),
                                     self.max_len - len(req.prompt)
                                     - len(req.output)))
-        steps_left = torch.tensor(left[self._rows], dtype=torch.int32,
-                                  device=self.device)
-        tok = self.last_token[self._rows]
-        emitted = []
-        for _ in range(k):
-            nxt = self._decode_fn(tok)
-            active = steps_left > 0
-            tok = torch.where(active, nxt, tok)
-            steps_left = steps_left - active.to(steps_left.dtype)
-            emitted.append(tok)
-        block = self._gather_rows(torch.stack(emitted))     # (k, max_batch)
+        parts = None if self.tracer is None else \
+            obs_host.open_parts(self._clock)
+        try:
+            steps_left = torch.tensor(left[self._rows], dtype=torch.int32,
+                                      device=self.device)
+            tok = self.last_token[self._rows]
+            emitted = []
+            for _ in range(k):
+                nxt = self._decode_fn(tok)
+                active = steps_left > 0
+                tok = torch.where(active, nxt, tok)
+                steps_left = steps_left - active.to(steps_left.dtype)
+                emitted.append(tok)
+            block = self._gather_rows(torch.stack(emitted))  # (k, max_batch)
+        finally:
+            if parts is not None:
+                obs_host.close_parts()
         self.last_token = block[-1]
         self.decode_dispatches += 1
+        if parts is not None:
+            t_launch = self._clock()
         # analysis: ignore[host-sync] ONE sync per k tokens (A1)
         toks = block.tolist()
         now = self._clock()
@@ -460,11 +519,14 @@ class ServingEngine:
             attrs.update(batch=len(active_reqs), steps=k, iters=k)
             self.tracer.record("decode", t0, now, cat="iteration",
                                track=self._track, attrs=attrs)
+            self._record_split("decode", t0, t_launch, now, parts)
         for step in range(k):
             for slot, req in enumerate(self.slots):
                 if req is None or step >= left[slot]:
                     continue
                 self._finish_token(slot, req, toks[step][slot], now)
+        if self.tracer is not None:
+            self._record_finish(now, sum(min(n, k) for n in left))
         self._iter += k
         return k
 

@@ -328,3 +328,111 @@ def test_launcher_serves_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "finished=3/3" in out and "bank_mode=bucketed" in out
     assert "on the CPU: no device time" in out
+
+
+HOST_PARTS = {"attention", "lora", "ffn", "logits"}
+
+
+def _serve(setup, k, **kw):
+    """Four requests of two prompt lengths through three slots, the
+    fourth admitted mid-flight; returns the engine and its steps."""
+    cfg, _, tp, _ = setup
+    eng = ServingEngine(cfg, tp, dict(ADAPTERS), max_batch=3, max_len=24,
+                        bank_mode="bucketed", decode_block=k, device="cpu",
+                        **kw)
+    for i, (aid, n) in enumerate([("a-r8", 3), ("b-r64", 3), ("c-r16", 5),
+                                  ("a-r8", 5)]):
+        eng.submit(Request(i, aid, list(range(1, n + 1)), 3))
+    steps = 0
+    while eng.queue or eng.active:
+        eng.step()
+        steps += 1
+    return eng, steps
+
+
+@pytest.fixture(scope="module", params=[1, 4], ids=["k1", "k4"])
+def served(setup, request):
+    """The same requests at decode block k, served without a tracer
+    ("quiet") and with one ("traced"): (engine, steps, clock reads, the
+    part slot as each model step found it, tracer) for each."""
+    from repro_torch.obs import Tracer
+    from repro_torch.obs import host as obs_host
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        step = TM.decode_step
+        seen = []
+
+        def watched(*a, **kw):
+            seen.append(obs_host.PARTS)
+            return step(*a, **kw)
+        mp.setattr(TM, "decode_step", watched)
+        for name, tracer in (("quiet", None), ("traced", Tracer())):
+            reads = []
+
+            def clock():
+                reads.append(1)
+                return time.monotonic()
+            seen.clear()
+            eng, steps = _serve(setup, request.param, clock=clock,
+                                tracer=tracer)
+            out[name] = (eng, steps, len(reads), list(seen), tracer)
+    return out
+
+
+def test_host_spans_telescope_to_the_iteration_spans(served, setup):
+    """Each decode span is exactly ``decode.launch`` then ``decode.sync``,
+    each prefill span ``prefill.launch``, ``.sync`` and ``.merge``;
+    ``finish`` follows each decode span, ``admit`` holds its prefill
+    groups, and a launch's part self times sum to no more than it."""
+    tracer = served["traced"][4]
+    named = {}
+    for s in tracer.spans:
+        named.setdefault(s.name, []).append(s)
+    assert {s.cat for s in named["decode"] + named["prefill"]} == \
+        {"iteration"}
+    for it, kids in (("decode", ("launch", "sync")),
+                     ("prefill", ("launch", "sync", "merge"))):
+        chains = [named[f"{it}.{c}"] for c in kids]
+        assert all(len(c) == len(named[it]) for c in chains)
+        for parent, *chain in zip(named[it], *chains):
+            assert chain[0].start == parent.start
+            assert all(a.end == b.start for a, b in zip(chain, chain[1:]))
+            assert chain[-1].end == parent.end
+            assert all(c.cat == "host" and c.track == "server:0"
+                       for c in chain)
+    for d, f in zip(named["decode"], named["finish"]):
+        assert f.start == d.end <= f.end
+    assert len(named["finish"]) == len(named["decode"])
+    assert len(named["admit"]) == 2
+    for p in named["prefill"]:
+        assert any(a.start <= p.start and p.end <= a.end
+                   for a in named["admit"])
+    L = setup[0].n_layers
+    for launch in named["decode.launch"] + named["prefill.launch"]:
+        host_s, calls = launch.attrs["host_s"], launch.attrs["calls"]
+        assert set(host_s) == set(calls) == HOST_PARTS
+        assert all(v >= 0 for v in host_s.values())
+        assert sum(host_s.values()) <= launch.end - launch.start
+    for launch, d in zip(named["decode.launch"], named["decode"]):
+        n = d.attrs["steps"]
+        # per step: each layer's attention, FFN and LoRA binding, the four
+        # targets' hooks; the head and the argmax
+        assert launch.attrs["calls"] == {"attention": L * n, "ffn": L * n,
+                                         "lora": 5 * L * n,
+                                         "logits": 2 * n}
+
+
+def test_clock_reads_without_a_tracer_are_the_parents(served):
+    """Without a tracer the engine reads its clock as it did before the
+    host spans: once a step, twice a prefill group and twice a decode
+    dispatch; and the model never finds a part slot. A tracer adds
+    reads and fills the slot inside each launch only."""
+    from repro_torch.obs import host as obs_host
+    eng, steps, reads, seen, _ = served["quiet"]
+    assert reads == steps + 2 * eng.prefill_dispatches + \
+        2 * eng.decode_dispatches
+    assert seen and all(p is None for p in seen)
+    eng, steps, traced_reads, seen, _ = served["traced"]
+    assert traced_reads > reads
+    assert seen and all(p is not None for p in seen)
+    assert obs_host.PARTS is None

@@ -14,6 +14,7 @@ import json
 import math
 import os
 import random
+import time
 
 import pytest
 
@@ -100,14 +101,117 @@ def runs():
     srep = LoRAServeCluster(SimBackend(2), _adapters(), network=NetworkModel(),
                             tracer=st, **kw).run(_trace())
     return dict(jax=(jrep, jt, jtrace), port=(trep, tt, ttrace),
-                sim=(srep, st, None), cluster=tc)
+                sim=(srep, st, None), cluster=tc, setup=(cfg, tp, tw))
 
 
 def test_engine_span_names_equal_the_jax_engines_and_the_sims(runs):
-    names = {k: {s.name for s in runs[k][1].spans}
+    # the categories the three record alike; the port's own host spans
+    # and clock snapshots (``obs/host.py``) are held below
+    names = {k: {s.name for s in runs[k][1].spans
+                 if s.cat not in PORT_ONLY}
              for k in ("jax", "port", "sim")}
     assert names["port"] == names["jax"] == names["sim"]
     assert {"request", "route", *REQUEST_PHASES} <= names["port"]
+
+
+PORT_ONLY = ("host", "clock")
+HOST_SPANS = {"admit", "prefill.launch", "prefill.sync", "prefill.merge",
+              "decode.launch", "decode.sync", "finish", "poll"}
+
+
+def test_port_host_spans_and_clock_snapshots(runs):
+    """The port's engines and facade add host spans and clock snapshots,
+    which neither the JAX package's engines nor the simulator under the
+    port's facade record. Snapshots are instants on the control track,
+    a second apart at least, their Unix time read beside the cluster
+    clock; every poll span holds an engine span."""
+    spans = runs["port"][1].spans
+    assert {s.name for s in spans if s.cat == "host"} == HOST_SPANS
+    assert not any(s.cat in PORT_ONLY for k in ("jax", "sim")
+                   for s in runs[k][1].spans)
+    clocks = [s for s in spans if s.cat == "clock"]
+    assert clocks and {s.name for s in clocks} == {"clock"}
+    assert all(s.track == "control" and s.start == s.end for s in clocks)
+    starts = [s.start for s in clocks]
+    assert all(b - a >= 1.0 for a, b in zip(starts, starts[1:]))
+    cluster = runs["cluster"]
+    offset = time.time_ns() / 1e9 - cluster.clock()
+    for s in clocks:
+        assert abs(s.attrs["unix_ns"] / 1e9 - s.start - offset) < 0.05
+    polls = [s for s in spans if s.name == "poll"]
+    engine = [s for s in spans if s.track.startswith("server:")]
+    assert polls and all(p.track == "control" for p in polls)
+    for p in polls:
+        assert any(p.start <= e.start and e.end <= p.end for e in engine)
+
+
+def test_no_host_spans_without_a_tracer(runs, monkeypatch):
+    """A facade over the port's engines without a tracer keeps no poll
+    spans, its engines none, and the model finds no part slot."""
+    from repro_torch.models import model as TM
+    from repro_torch.obs import host as obs_host
+    cfg, tp, tw = runs["setup"]
+    seen = []
+    step = TM.decode_step
+
+    def watched(*a, **kw):
+        seen.append(obs_host.PARTS)
+        return step(*a, **kw)
+    monkeypatch.setattr(TM, "decode_step", watched)
+    tc = LoRAServeCluster(
+        SeededWeightsBackend(cfg, tp, 2, weights=tw, device="cpu",
+                             max_batch=2, max_len=40, seed=0),
+        _adapters(), network=NetworkModel(), policy="loraserve",
+        rebalance_period=1e9, seed=0)
+    assert tc.run(_trace(ServeRequest, cfg.vocab_size, n=2)).completed() == 2
+    assert tc._poll_spans is None
+    assert all(e.tracer is None for e in tc.backend.engines if e is not None)
+    assert seen and all(p is None for p in seen)
+
+
+def test_poll_spans_count_idle_polls_and_space_snapshots():
+    """A poll in which no engine recorded a span records none; the next
+    poll span counts it. A snapshot is taken at the first poll, then at
+    most once a second."""
+    from repro_torch.obs.host import PollSpans
+    clock = EventClock()
+    tracer = Tracer(clock=clock)
+    polls = PollSpans(tracer, clock.now)
+    for t, work in ((0.0, False), (0.4, True), (0.8, False), (0.9, False),
+                    (1.2, True), (1.5, True)):
+        clock.advance(t)
+        polls.open()
+        if work:
+            tracer.record("decode", t, t + 0.05, cat="iteration",
+                          track="server:0", attrs={})
+        clock.advance(t + 0.1)
+        polls.close()
+    got = [(s.name, s.start, s.attrs) for s in tracer.spans
+           if s.cat != "iteration"]
+    assert [g[:2] for g in got] == [("clock", 0.0), ("poll", 0.4),
+                                    ("clock", 1.2), ("poll", 1.2),
+                                    ("poll", 1.5)]
+    assert [a["idle_polls"] for n, _, a in got if n == "poll"] == [1, 2, 0]
+
+
+def test_host_parts_take_nested_parts_out_of_the_outer_one():
+    from repro_torch.obs.host import HostParts
+    t = [0.0]
+
+    def tick(dt):
+        t[0] += dt
+    parts = HostParts(lambda: t[0])
+
+    def attention():
+        tick(1.0)
+        parts.run("lora", tick, 0.25)
+        parts.run("lora", tick, 0.25)
+        tick(2.0)
+    parts.run("attention", attention)
+    parts.timed("ffn", tick)(4.0)
+    assert parts.attrs() == {
+        "host_s": {"attention": 3.0, "lora": 0.5, "ffn": 4.0},
+        "calls": {"attention": 1, "lora": 2, "ffn": 1}}
 
 
 def test_engine_tokens_equal_the_jax_facades(runs):
