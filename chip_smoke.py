@@ -481,7 +481,9 @@ class MainPathCalls:
     forwards every call unchanged (the wrappers count their own launches)
     and keeps a copy of the arguments of each one's smallest call (by
     rows: a decode step) and largest (a prefill group), with the ``dest``
-    that laid out the last SGMV call's tokens."""
+    that laid out the last SGMV call's tokens. A dispatcher's ``layout``
+    (the engine's plan built it once for the batch) is not kept: a replay
+    builds it again from the call's own indices, the same tensors."""
 
     def __init__(self, tp=False, widths=False):
         from repro_torch.kernels import ops
@@ -539,7 +541,9 @@ class MainPathCalls:
                 if kept is None or keep(rows, kept):
                     self._rows[key] = rows
                     dest = None if self._dest is None else self._dest.clone()
-                    self.calls[key] = (_copy(args), _copy(kw), dest)
+                    self.calls[key] = (_copy(args), {
+                        k: _copy(v) for k, v in kw.items()
+                        if k != "layout"}, dest)
             return fn(*args, **kw)
         return call
 

@@ -10,12 +10,19 @@ its own rank in one launch. The segment layout is computed on the device
 with no host sync (stable argsort, scatter-add counts, cumsum), so the
 engine's k-step decode keeps one sync per k tokens.
 
-``segment_layout`` / ``bucketed_layout`` lay a token batch out for a
-padded / bucketed bank, and ``live_rows`` counts each block's live rows
-(the shrink kernels skip the rest, and spare blocks altogether); the
-dispatchers here and the tensor-parallel forms in ``lora/batched.py``
-share them. ``sgmv_bucketed_fused`` takes its ``block_t`` from
-``tune.block_plan`` when given none, as the JAX package's does.
+``padded_segments`` / ``bucketed_segments`` build everything of a token
+batch's layout but x: where each token goes (``dest``), each block's
+adapter (or bucket and bank row), each block's live rows (``live_rows``:
+the shrink kernels skip the rest, and spare blocks altogether) and
+``T_pad``. The dispatchers build it in every call unless they are handed
+one (``layout=``); the serving engine hands them one that
+``lora/batched.py:LayoutPlan`` built once for the whole batch, since it
+depends on the batch's adapter indices and never on x. A call then only
+scatters x into the padded layout, launches, and gathers the rows back.
+``segment_layout`` / ``bucketed_layout`` give a batch's layout with x
+already scattered, for the callers that time or check a kernel on it.
+``sgmv_bucketed_fused`` takes its ``block_t`` from ``tune.block_plan``
+(``plan_block_t``) when given none, as the JAX package's does.
 
 ``sgmv`` (and ``bgmv``, its block_t = 1 decode form) computes the same
 delta on the unfused pair B3a/B3b, bit for bit equal to ``sgmv_fused``;
@@ -114,14 +121,42 @@ def scatter_rows(x, dest, T_pad):
     return x_pad
 
 
+def padded_segments(token_adapter, n_adapters: int, block_t: int):
+    """A token batch laid out for a padded bank: (dest (T,) int64,
+    block_adapter, live, T_pad), ``live`` the ``live_rows`` of each
+    block."""
+    T_pad = padded_len(token_adapter.shape[0], n_adapters, block_t)
+    dest, block_adapter = prepare_segments(token_adapter, n_adapters,
+                                           block_t)
+    dest = dest.long()
+    return dest, block_adapter, live_rows(dest, T_pad, block_t), T_pad
+
+
+def bucketed_segments(token_adapter, adapter_bucket, adapter_local,
+                      n_buckets: int, block_t: int):
+    """A token batch laid out bucket-major for a rank-bucketed bank:
+    (dest (T,) int64, block_bucket, block_row, live, T_pad).
+    adapter_local=None: every bucket bank is indexed by the global
+    adapter id."""
+    Na = adapter_bucket.shape[0]
+    T_pad = padded_len(token_adapter.shape[0], Na, block_t)
+    dest, block_adapter = prepare_segments_bucketed(
+        token_adapter, adapter_bucket, Na, n_buckets, block_t)
+    dest = dest.long()
+    local = torch.arange(Na, dtype=torch.int32,
+                         device=adapter_bucket.device) \
+        if adapter_local is None else adapter_local.to(torch.int32)
+    ba = block_adapter.long()
+    return (dest, adapter_bucket.to(torch.int32)[ba], local[ba],
+            live_rows(dest, T_pad, block_t), T_pad)
+
+
 def segment_layout(x, token_adapter, n_adapters: int, block_t: int):
     """x's rows in the padded bank's layout: (dest, block_adapter,
     x_pad)."""
-    dest, block_adapter = prepare_segments(token_adapter, n_adapters,
-                                           block_t)
-    x_pad = scatter_rows(x, dest, padded_len(x.shape[0], n_adapters,
-                                             block_t))
-    return dest, block_adapter, x_pad
+    dest, block_adapter, _, T_pad = padded_segments(
+        token_adapter, n_adapters, block_t)
+    return dest, block_adapter, scatter_rows(x, dest, T_pad)
 
 
 def bucketed_layout(x, token_adapter, adapter_bucket, adapter_local,
@@ -129,14 +164,9 @@ def bucketed_layout(x, token_adapter, adapter_bucket, adapter_local,
     """x's rows in a rank-bucketed bank's bucket-major layout: (dest,
     block_bucket, block_row, x_pad). adapter_local=None: every bucket
     bank is indexed by the global adapter id."""
-    Na = adapter_bucket.shape[0]
-    dest, block_adapter = prepare_segments_bucketed(
-        token_adapter, adapter_bucket, Na, n_buckets, block_t)
-    local = torch.arange(Na, dtype=torch.int32, device=x.device) \
-        if adapter_local is None else adapter_local.to(torch.int32)
-    ba = block_adapter.long()
-    x_pad = scatter_rows(x, dest, padded_len(x.shape[0], Na, block_t))
-    return dest, adapter_bucket.to(torch.int32)[ba], local[ba], x_pad
+    dest, block_bucket, block_row, _, T_pad = bucketed_segments(
+        token_adapter, adapter_bucket, adapter_local, n_buckets, block_t)
+    return dest, block_bucket, block_row, scatter_rows(x, dest, T_pad)
 
 
 def sgmv(x, A, B, token_adapter, *, scaling: float = 1.0,
@@ -145,12 +175,12 @@ def sgmv(x, A, B, token_adapter, *, scaling: float = 1.0,
     (T,) int. The LoRA delta on the unfused pair: kernel B3a writes the
     (T_pad, r) intermediate, kernel B3b expands it. Returns (T, d_out),
     bit for bit ``sgmv_fused``'s."""
-    dest, block_adapter, x_pad = segment_layout(x, token_adapter,
-                                                A.shape[0], block_t)
-    h = sgmv_shrink(x_pad, A, block_adapter, block_t=block_t,
-                    block_live=live_rows(dest, x_pad.shape[0], block_t))
+    dest, block_adapter, live, T_pad = padded_segments(
+        token_adapter, A.shape[0], block_t)
+    h = sgmv_shrink(scatter_rows(x, dest, T_pad), A, block_adapter,
+                    block_t=block_t, block_live=live)
     y_pad = sgmv_expand(h, B, block_adapter, block_t=block_t)
-    return y_pad[dest.long()] * scaling
+    return y_pad[dest] * scaling
 
 
 def bgmv(x, A, B, token_adapter, *, scaling: float = 1.0):
@@ -193,21 +223,31 @@ def sgmv_rank_bucketed(x, banks, token_adapter, adapter_rank_bucket, *,
 
 
 def sgmv_fused(x, A, B, token_adapter, *, scaling: float = 1.0,
-               block_t: int = 16):
+               block_t: int = 16, layout=None):
     """x: (T, d_in); A: (Na, d_in, r); B: (Na, r, d_out); token_adapter:
     (T,) int. The LoRA delta on kernel B1, one launch. Returns
-    (T, d_out)."""
-    dest, block_adapter, x_pad = segment_layout(x, token_adapter,
-                                                A.shape[0], block_t)
-    y_pad = sgmv_fused_blocks(x_pad, A, B, block_adapter, block_t=block_t,
-                              block_live=live_rows(dest, x_pad.shape[0],
-                                                   block_t))
-    return y_pad[dest.long()] * scaling
+    (T, d_out). ``layout``: ``padded_segments(token_adapter, Na,
+    block_t)`` built beforehand, else built here."""
+    if layout is None:
+        layout = padded_segments(token_adapter, A.shape[0], block_t)
+    dest, block_adapter, live, T_pad = layout
+    y_pad = sgmv_fused_blocks(scatter_rows(x, dest, T_pad), A, B,
+                              block_adapter, block_t=block_t,
+                              block_live=live)
+    return y_pad[dest] * scaling
+
+
+def plan_block_t(x, banks) -> int:
+    """``tune.block_plan``'s ``block_t`` for x's rows on a rank-bucketed
+    bank set (from shapes alone: no host sync)."""
+    return tune.block_plan(x.shape[0], x.shape[1], banks[0][1].shape[-1],
+                           tuple(A.shape[-1] for A, _ in banks),
+                           tuple(A.shape[0] for A, _ in banks))
 
 
 def sgmv_bucketed_fused(x, banks, token_adapter, adapter_bucket,
                         adapter_local=None, *, scaling: float = 1.0,
-                        block_t=None):
+                        block_t=None, layout=None):
     """Rank-bucketed LoRA delta in one launch of kernel B2.
 
     banks: sequence of (A_b (Na_b, d, r_b), B_b (Na_b, r_b, d_out)) in
@@ -217,19 +257,21 @@ def sgmv_bucketed_fused(x, banks, token_adapter, adapter_bucket,
     block size from ``tune.block_plan`` on the bank signature (the same as
     the JAX package's plan, from shapes alone: no host sync); an explicit
     value pins it. The JAX plan's bank residency is a TPU VMEM plan that
-    changes no number, so it has no counterpart here."""
+    changes no number, so it has no counterpart here. ``layout``:
+    ``bucketed_segments(token_adapter, adapter_bucket, adapter_local,
+    len(banks), block_t)`` built beforehand at the ``block_t`` given,
+    else built here."""
     banks = tuple((A, B) for A, B in banks)
     if block_t is None:
-        block_t = tune.block_plan(
-            x.shape[0], x.shape[1], banks[0][1].shape[-1],
-            tuple(A.shape[-1] for A, _ in banks),
-            tuple(A.shape[0] for A, _ in banks))
-    dest, block_bucket, block_row, x_pad = bucketed_layout(
-        x, token_adapter, adapter_bucket, adapter_local, len(banks), block_t)
+        block_t = plan_block_t(x, banks)
+    if layout is None:
+        layout = bucketed_segments(token_adapter, adapter_bucket,
+                                   adapter_local, len(banks), block_t)
+    dest, block_bucket, block_row, live, T_pad = layout
     y_pad = sgmv_multibank_blocks(
-        x_pad, banks, block_bucket, block_row, block_t=block_t,
-        block_live=live_rows(dest, x_pad.shape[0], block_t))
-    return y_pad[dest.long()] * scaling
+        scatter_rows(x, dest, T_pad), banks, block_bucket, block_row,
+        block_t=block_t, block_live=live)
+    return y_pad[dest] * scaling
 
 
 def sgmv_reference(x, A, B, token_adapter, scaling: float = 1.0):

@@ -20,7 +20,10 @@ bit the same delta.
 padded path with ``idx: (Bt,)`` global adapter rows; a tuple of per-
 bucket slices selects the bucketed path with ``idx: (Bt, 2)`` carrying
 (bucket, local-row) per request — the shape ``LoRABank.lora_idx``
-produces.
+produces. Where the index tensor comes wrapped in a ``LayoutPlan`` (the
+serving engine's), the kernel forms build the batch's segment layout once
+in the plan and every later hook call of the batch only scatters x,
+launches and gathers; the einsum forms take the tensor inside.
 
 Tensor parallel (``tp`` > 1, the JAX package's "coshard" mode): the bank
 is co-sharded (``serving.sharding``): each A holds this rank's slice of
@@ -38,8 +41,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import (bucketed_layout, live_rows,
-                                     segment_layout, sgmv,
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import (bucketed_segments, padded_segments,
+                                     plan_block_t, sgmv,
                                      sgmv_bucketed_fused, sgmv_fused,
                                      sgmv_rank_bucketed)
 from repro_torch.kernels.sgmv import (sgmv_expand, sgmv_multibank_expand,
@@ -90,57 +94,131 @@ def lora_delta_bucketed(x, bucket_targets, idx, scaling: float = 1.0,
     return out
 
 
+class LayoutPlan:
+    """One batch's LoRA index tensor (``LoRABank.lora_idx``) with the SGMV
+    segment layouts built from it, each built once.
+
+    A layout (``ops.padded_segments`` / ``ops.bucketed_segments``)
+    depends on the index tensor, the token count, ``block_t`` and the
+    bank's form, never on x, so every hook call of a batch (each layer's
+    targets) would build the same one. The engine wraps its index tensor
+    in a plan once per batch composition (an admit pass, a bank rebuild,
+    a prefill group) and passes it as ``lora_idx``; the kernel forms below
+    build a layout on its first use, on the device, and find it built
+    after. A plain index tensor builds the layout in every call, the same
+    tensors. ``on_build()`` is called once per layout built."""
+
+    __slots__ = ("idx", "on_build", "_layouts")
+
+    def __init__(self, idx, on_build):
+        self.idx = idx
+        self.on_build = on_build
+        self._layouts = {}
+
+    def layout(self, key, build):
+        """The layout under ``key``, from ``build()`` the first time."""
+        lay = self._layouts.get(key)
+        if lay is None:
+            lay = self._layouts[key] = build()
+            self.on_build()
+        return lay
+
+
+def _split(idx):
+    """(the plan or None, the index tensor) of a ``lora_idx``."""
+    if isinstance(idx, LayoutPlan):
+        return idx, idx.idx
+    return None, idx
+
+
+def _padded_layout(idx, S, n_adapters, block_t):
+    """(tok, layout) of the padded kernel forms: each row's global
+    adapter repeated over its S tokens, laid out at ``block_t``."""
+    plan, idx = _split(idx)
+
+    def build():
+        tok = idx.repeat_interleave(S)
+        return tok, padded_segments(tok, n_adapters, block_t)
+    if plan is None:
+        return build()
+    return plan.layout(("padded", idx.shape[0] * S, block_t, n_adapters,
+                        idx.device), build)
+
+
+def _bucketed_layout(idx, S, n_buckets, block_t):
+    """(tok, bucket, local, layout) of the bucketed kernel forms: every
+    batch row is its own "adapter" (adapter_bucket/adapter_local taken
+    straight from the (Bt, 2) idx), its S tokens laid out at
+    ``block_t``."""
+    plan, idx = _split(idx)
+    B = idx.shape[0]
+
+    def build():
+        tok = torch.arange(B, dtype=torch.int32,
+                           device=idx.device).repeat_interleave(S)
+        bucket, local = idx[:, 0], idx[:, 1]
+        return tok, bucket, local, bucketed_segments(tok, bucket, local,
+                                                     n_buckets, block_t)
+    if plan is None:
+        return build()
+    return plan.layout(("bucketed", B * S, block_t, n_buckets, B,
+                        idx.device), build)
+
+
 def _lora_delta_sgmv(x, target, idx, scaling, block_t, tp):
     """Padded-bank kernel form of ``lora_delta``: token-major flatten, one
     ``sgmv_fused`` launch (B1), unflatten. At tp > 1: B3a on the rank's d
     slice, one all-reduce of the (T_pad, r) h, B3b on its d_out
-    columns."""
+    columns. ``idx``: the (Bt,) index tensor, or a ``LayoutPlan`` of it
+    that holds the layout."""
     x2, (B_, S_) = rows_to_tokens(x)
-    tok = idx.repeat_interleave(S_)
     bt = 16 if block_t is None else block_t
     A, B = target["A"].to(x.dtype), target["B"].to(x.dtype)
+    tok, layout = _padded_layout(idx, S_, A.shape[0], bt)
     if tp_size(tp) == 1:
-        y = sgmv_fused(x2, A, B, tok, scaling=scaling, block_t=bt)
+        y = sgmv_fused(x2, A, B, tok, scaling=scaling, block_t=bt,
+                       layout=layout)
     else:
-        dest, block_adapter, x_pad = segment_layout(
-            _local_x(x2, A, tp), tok, A.shape[0], bt)
-        h = all_reduce_(sgmv_shrink(
-            x_pad, A, block_adapter, block_t=bt,
-            block_live=live_rows(dest, x_pad.shape[0], bt)), tp)
-        y = sgmv_expand(h, B, block_adapter, block_t=bt)[dest.long()] \
-            * scaling
+        dest, block_adapter, live, T_pad = layout
+        x_pad = ops.scatter_rows(_local_x(x2, A, tp), dest, T_pad)
+        h = all_reduce_(sgmv_shrink(x_pad, A, block_adapter, block_t=bt,
+                                    block_live=live), tp)
+        y = sgmv_expand(h, B, block_adapter, block_t=bt)[dest] * scaling
     return tokens_to_rows(y, B_, S_)
 
 
 def _lora_delta_sgmv_bucketed(x, bucket_targets, idx, scaling, block_t,
                               tp):
-    """Bucketed kernel form: every batch row is its own "adapter"
-    (adapter_bucket/adapter_local taken straight from the (Bt, 2) idx), so
-    the whole heterogeneous delta is ONE ``sgmv_bucketed_fused`` launch
-    (B2) with each row's tokens at its own bucket's rank, at the block
-    size of ``kernels.tune.block_plan`` when ``block_t`` is None. At tp >
-    1 (block_t 16 unless given, as the JAX package's coshard branch): B4a
+    """Bucketed kernel form: every batch row is its own "adapter", so the
+    whole heterogeneous delta is ONE ``sgmv_bucketed_fused`` launch (B2)
+    with each row's tokens at its own bucket's rank, at the block size of
+    ``kernels.tune.block_plan`` when ``block_t`` is None. At tp > 1
+    (block_t 16 unless given, as the JAX package's coshard branch): B4a
     on the rank's d slice of every bucket's A, one all-reduce of the
-    (T_pad, max_r) h, B4b on its d_out columns of every B."""
+    (T_pad, max_r) h, B4b on its d_out columns of every B. ``idx``: the
+    (Bt, 2) index tensor, which lays the tokens out in this call, or a
+    ``LayoutPlan`` of it, which lays them out in its first call at this
+    T and ``block_t`` and hands the layout to every later one."""
     x2, (B_, S_) = rows_to_tokens(x)
-    tok = torch.arange(B_, dtype=torch.int32,
-                       device=x.device).repeat_interleave(S_)
     A_banks = [t["A"].to(x.dtype) for t in bucket_targets]
     B_banks = [t["B"].to(x.dtype) for t in bucket_targets]
     if tp_size(tp) == 1:
-        y = sgmv_bucketed_fused(x2, tuple(zip(A_banks, B_banks)), tok,
-                                idx[:, 0], idx[:, 1], scaling=scaling,
-                                block_t=block_t)
+        banks = tuple(zip(A_banks, B_banks))
+        bt = plan_block_t(x2, banks) if block_t is None else block_t
+        tok, bucket, local, layout = _bucketed_layout(idx, S_, len(banks),
+                                                      bt)
+        y = sgmv_bucketed_fused(x2, banks, tok, bucket, local,
+                                scaling=scaling, block_t=bt, layout=layout)
     else:
         bt = 16 if block_t is None else block_t
-        dest, block_bucket, block_row, x_pad = bucketed_layout(
-            _local_x(x2, A_banks[0], tp), tok, idx[:, 0], idx[:, 1],
-            len(A_banks), bt)
+        _, _, _, (dest, block_bucket, block_row, live, T_pad) = \
+            _bucketed_layout(idx, S_, len(A_banks), bt)
+        x_pad = ops.scatter_rows(_local_x(x2, A_banks[0], tp), dest, T_pad)
         h = all_reduce_(sgmv_multibank_shrink(
             x_pad, A_banks, block_bucket, block_row, block_t=bt,
-            block_live=live_rows(dest, x_pad.shape[0], bt)), tp)
+            block_live=live), tp)
         y = sgmv_multibank_expand(h, B_banks, block_bucket, block_row,
-                                  block_t=bt)[dest.long()] * scaling
+                                  block_t=bt)[dest] * scaling
     return tokens_to_rows(y, B_, S_)
 
 
@@ -152,7 +230,10 @@ def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
 
     ``bank_layer`` is {target: {"A","B"}} for a padded bank, or a tuple of
     such dicts (one per rank bucket) for a bucketed bank; ``idx`` is the
-    matching ``LoRABank.lora_idx`` output. ``kernel`` selects "einsum"
+    matching ``LoRABank.lora_idx`` output, or a ``LayoutPlan`` of it: the
+    "sgmv" forms then take the segment layout the plan built for the batch
+    (in the first hook call that needs it) and build none, where a plain
+    tensor has every call build its own. ``kernel`` selects "einsum"
     (gather-einsum) or "sgmv" (the hand-written kernels; their plain
     versions on CPU tensors). ``block_t=None`` means the bucketed path's
     ``kernels.tune.block_plan`` at tp = 1, else 16. ``tp``: this
@@ -163,6 +244,8 @@ def make_lora_cb(bank_layer, idx, scaling: float = 1.0, *,
         return None
     if kernel not in ("einsum", "sgmv"):
         raise ValueError(f"unknown lora kernel {kernel!r}")
+    if kernel == "einsum":
+        idx = _split(idx)[1]
 
     def delta(name, x):
         if isinstance(bank_layer, (tuple, list)):

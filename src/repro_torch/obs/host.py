@@ -12,7 +12,10 @@ the one slot through which the model's functions, which take no tracer,
 count the host self time of their parts: ``attention`` (less the LoRA
 calls inside it), ``lora`` (the hook ``make_lora_cb`` returns, and its
 binding per layer), ``ffn`` and ``logits`` (the head and the argmax). The
-launch span carries them as ``attrs["host_s"]`` and ``attrs["calls"]``.
+launch span carries them as ``attrs["host_s"]`` and ``attrs["calls"]``,
+and ``attrs["lora_layouts"]``, the SGMV segment layouts that the engine's
+``LayoutPlan``s built inside it (0 where the batch's layout was built
+before).
 Without a tracer ``PARTS`` stays ``None`` and an instrumented call costs
 one read of it.
 

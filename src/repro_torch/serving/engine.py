@@ -8,7 +8,11 @@ in one merge. Decode runs one step for the whole slot batch;
 ``decode_steps(k)`` runs k of them on the device with on-device argmax
 and per-slot remaining-token bookkeeping, so decode costs one host sync
 per k tokens. Each slot row carries its own cache position; free slots
-drop their writes.
+drop their writes. The slots' adapter indices go to the model in a
+``lora.batched.LayoutPlan``, made anew at each admit pass and bank
+rebuild, and each prefill group's in one of its own: the SGMV segment
+layout is built once for the batch, in its first LoRA hook call, and
+``lora_layout_builds`` counts the layouts built.
 
 The engine is placement-aware: its bank holds only the adapters placed
 onto this server, padded to that subset's max rank. ``load_adapters`` /
@@ -81,6 +85,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import NO_DP
 from repro_torch.lora.adapter import Adapter, bank_layers
 from repro_torch.lora.bank import build_bank, rank_bucket
+from repro_torch.lora.batched import LayoutPlan
 from repro_torch.models import model as M
 from repro_torch.models.common import all_gather_
 from repro_torch.obs import host as obs_host
@@ -151,6 +156,9 @@ class ServingEngine:
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.tokens_decoded = 0
+        # SGMV segment layouts built for this engine's batches (one per
+        # batch composition that ran, ``LayoutPlan``)
+        self.lora_layout_builds = 0
 
         self.adapter_ranks: Dict[str, int] = {}
         self._rebuild_bank(dict(adapter_ranks))
@@ -191,8 +199,19 @@ class ServingEngine:
         self._slot_lora = self._rows_lora()
 
     def _rows_lora(self):
-        """This replica's slot rows' (bucket, local) bank indices."""
-        return self.lora_bank.lora_idx(self.slot_adapter[self._rows])
+        """This replica's slot rows' (bucket, local) bank indices, in the
+        plan that builds their decode layout once."""
+        return self._plan(self.slot_adapter[self._rows])
+
+    def _plan(self, adapter_idx):
+        """The ``lora_idx`` of a batch of global adapter indices: the bank's
+        index tensor in a ``LayoutPlan`` that counts its layouts into
+        ``lora_layout_builds``."""
+        return LayoutPlan(self.lora_bank.lora_idx(adapter_idx),
+                          self._layout_built)
+
+    def _layout_built(self) -> None:
+        self.lora_layout_builds += 1
 
     def load_adapters(self, adapter_ranks: Dict[str, int]) -> bool:
         """Add adapters to this server's bank. Returns True if the bank
@@ -262,7 +281,8 @@ class ServingEngine:
             groups.setdefault(len(req.prompt), []).append((slot, req))
         for length, grp in groups.items():
             self._prefill_group(length, grp)
-        # slot -> (bucket, local) bank indices once per admit pass
+        # slot -> (bucket, local) bank indices and their layout plan once
+        # per admit pass
         self._slot_lora = self._rows_lora()
         if self.tracer is not None:
             self.tracer.record("admit", now, self._clock(), cat="host",
@@ -292,6 +312,7 @@ class ServingEngine:
                 self._page_in(req, ai, length)
         parts = None if self.tracer is None else \
             obs_host.open_parts(self._clock)
+        built = self.lora_layout_builds
         try:
             toks = torch.tensor([req.prompt for _, req in grp],
                                 dtype=torch.int32, device=self.device)
@@ -299,7 +320,7 @@ class ServingEngine:
                                   device=self.device)
             logits, cache1 = M.prefill(
                 self.cfg, self.params, toks, frontend=self.zero_frontend(n),
-                bank=self.bank, lora_idx=self.lora_bank.lora_idx(aidx_t),
+                bank=self.bank, lora_idx=self._plan(aidx_t),
                 cache_len=self.max_len, cache_dtype=torch.float32,
                 lora_kernel=self.lora_kernel, tp=self.tp)
             self.prefill_dispatches += 1
@@ -334,7 +355,8 @@ class ServingEngine:
             attrs.update(tokens=n * length, batch=n)
             self.tracer.record("prefill", t0, t, cat="iteration",
                                track=self._track, attrs=attrs)
-            self._record_split("prefill", t0, t_launch, t_sync, parts)
+            self._record_split("prefill", t0, t_launch, t_sync, parts,
+                               built)
             self.tracer.record("prefill.merge", t_sync, t, cat="host",
                                track=self._track, attrs={})
 
@@ -416,13 +438,17 @@ class ServingEngine:
         return (_argmax if parts is None
                 else parts.timed("logits", _argmax))(logits)
 
-    def _record_split(self, name, t0, t_launch, t_sync, parts) -> None:
+    def _record_split(self, name, t0, t_launch, t_sync, parts,
+                      built: int) -> None:
         """The first host spans of an iteration span that starts at t0:
         ``<name>.launch`` to ``t_launch``, which enqueues the work and
-        carries the model parts' host self times, then ``<name>.sync`` to
-        ``t_sync``, the wait for its tokens."""
+        carries the model parts' host self times and ``lora_layouts``, the
+        SGMV segment layouts built since the count read ``built``, then
+        ``<name>.sync`` to ``t_sync``, the wait for its tokens."""
+        attrs = parts.attrs()
+        attrs["lora_layouts"] = self.lora_layout_builds - built
         self.tracer.record(f"{name}.launch", t0, t_launch, cat="host",
-                           track=self._track, attrs=parts.attrs())
+                           track=self._track, attrs=attrs)
         self.tracer.record(f"{name}.sync", t_launch, t_sync, cat="host",
                            track=self._track, attrs={})
 
@@ -444,6 +470,7 @@ class ServingEngine:
         active = [r for r in self.slots if r is not None]
         parts = None if self.tracer is None else \
             obs_host.open_parts(self._clock)
+        built = self.lora_layout_builds
         try:
             self.last_token = self._gather_rows(
                 self._decode_fn(self.last_token[self._rows]))
@@ -461,7 +488,8 @@ class ServingEngine:
             attrs.update(batch=len(active), steps=1, iters=1)
             self.tracer.record("decode", t0, now, cat="iteration",
                                track=self._track, attrs=attrs)
-            self._record_split("decode", t0, t_launch, now, parts)
+            self._record_split("decode", t0, t_launch, now, parts,
+                               built)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -491,6 +519,7 @@ class ServingEngine:
                                     - len(req.output)))
         parts = None if self.tracer is None else \
             obs_host.open_parts(self._clock)
+        built = self.lora_layout_builds
         try:
             steps_left = torch.tensor(left[self._rows], dtype=torch.int32,
                                       device=self.device)
@@ -519,7 +548,8 @@ class ServingEngine:
             attrs.update(batch=len(active_reqs), steps=k, iters=k)
             self.tracer.record("decode", t0, now, cat="iteration",
                                track=self._track, attrs=attrs)
-            self._record_split("decode", t0, t_launch, now, parts)
+            self._record_split("decode", t0, t_launch, now, parts,
+                               built)
         for step in range(k):
             for slot, req in enumerate(self.slots):
                 if req is None or step >= left[slot]:

@@ -23,7 +23,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import make_engine_mesh
-from repro_torch.lora.batched import make_lora_cb
+from repro_torch.lora.batched import LayoutPlan, make_lora_cb
 from repro_torch.models.model import bank_layer
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.sharding import EngineSharding
@@ -62,13 +62,18 @@ def lifecycle(engine, make_request, weights):
     return {r.req_id: list(r.output) for r in engine.completed}
 
 
-def _rank_delta(mesh, sharding, cfg, d):
+def _rank_delta(mesh, sharding, cfg, d, planned=False):
     """This rank's column slice of each target's co-sharded delta at
-    layer 0: q gets the full-width x, o the rank's heads of its x."""
+    layer 0: q gets the full-width x, o the rank's heads of its x. With
+    ``planned`` the hook takes the index tensor in a ``LayoutPlan``:
+    (the deltas, the layouts the plan built)."""
     bank = sharding.shard_bank(bridge.bank_from_numpy(cfg, d["bank"],
                                                       device="cpu"))
-    cb = make_lora_cb(bank_layer(bank.data, 0), torch.from_numpy(d["idx"]),
-                      kernel=d["kernel"], tp=mesh)
+    idx, built = torch.from_numpy(d["idx"]), []
+    if planned:
+        idx = LayoutPlan(idx, lambda: built.append(1))
+    cb = make_lora_cb(bank_layer(bank.data, 0), idx, kernel=d["kernel"],
+                      tp=mesh)
     out = {}
     for name, x in d["x"].items():
         x = torch.from_numpy(x)
@@ -76,7 +81,7 @@ def _rank_delta(mesh, sharding, cfg, d):
             w = x.shape[-1] // mesh.size
             x = x[..., mesh.rank * w:(mesh.rank + 1) * w]
         out[name] = cb(name, x).numpy()
-    return out
+    return (out, len(built)) if planned else out
 
 
 def rank_job(rank: int, tp: int, job_path, out_dir) -> None:
@@ -87,9 +92,11 @@ def rank_job(rank: int, tp: int, job_path, out_dir) -> None:
     "kernel", "bank" (JAX ``LoRABank`` fields as numpy), "idx" (its
     ``lora_idx``), "x" {target: (Bt, S, d_in)}}]. Writes
     ``out_dir/rank{rank}.pkl``: ``shards`` (this rank's sliced params),
-    ``delta`` {(mode, kernel, target): column slice}, ``engine`` {case:
-    lifecycle tokens} and ``adapter_weights`` (``a-r8`` as the last engine
-    gives it to a peer, full width)."""
+    ``delta`` {(mode, kernel, target): column slice}, ``plan_delta`` the
+    same with the index tensor in a ``LayoutPlan`` and ``plan_builds``
+    {(mode, kernel): layouts it built}, ``engine`` {case: lifecycle
+    tokens} and ``adapter_weights`` (``a-r8`` as the last engine gives it
+    to a peer, full width)."""
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     cfg = get_smoke_config(job["model"])
@@ -98,10 +105,15 @@ def rank_job(rank: int, tp: int, job_path, out_dir) -> None:
     params = bridge.params_from_numpy(cfg, job["params"], device="cpu")
     out = {"shards": {n: p.detach().numpy().copy() for n, p in
                       sharding.shard_params(params).named_parameters()},
-           "delta": {}, "engine": {}}
+           "delta": {}, "plan_delta": {}, "plan_builds": {}, "engine": {}}
     for d in job["deltas"]:
+        form = (d["mode"], d["kernel"])
         for name, y in _rank_delta(mesh, sharding, cfg, d).items():
-            out["delta"][(d["mode"], d["kernel"], name)] = y
+            out["delta"][(*form, name)] = y
+        planned, out["plan_builds"][form] = _rank_delta(
+            mesh, sharding, cfg, d, planned=True)
+        for name, y in planned.items():
+            out["plan_delta"][(*form, name)] = y
     weights = {aid: bridge.adapter_weights_from_numpy(w, device="cpu")
                for aid, w in job["weights"].items()}
     for case in job["cases"]:

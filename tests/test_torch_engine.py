@@ -436,3 +436,66 @@ def test_clock_reads_without_a_tracer_are_the_parents(served):
     assert traced_reads > reads
     assert seen and all(p is not None for p in seen)
     assert obs_host.PARTS is None
+
+
+def _layout_run(setup, k, bank_mode):
+    """``_serve``'s requests (two admit passes) with nonzero adapters and
+    a bank rebuild after the first step, traced. Returns the engine, the
+    tokens, the spans and the span count at the rebuild."""
+    from repro_torch.obs import Tracer
+    cfg, _, tp, weights = setup
+    tracer = Tracer()
+    eng = ServingEngine(cfg, tp, dict(ADAPTERS), max_batch=3, max_len=24,
+                        bank_mode=bank_mode, decode_block=k, tracer=tracer,
+                        device="cpu")
+    _install(eng, weights, ADAPTERS, False)
+    reqs = [Request(i, aid, list(range(1, n + 1)), 3)
+            for i, (aid, n) in enumerate([("a-r8", 3), ("b-r64", 3),
+                                          ("c-r16", 5), ("a-r8", 5)])]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    assert eng.load_adapters({"z-r32": 32})
+    _install(eng, weights, eng.adapter_ranks, False)
+    rebuilt_at = len(tracer.spans)
+    eng.run_until_drained()
+    return eng, [r.output for r in reqs], tracer.spans, rebuilt_at
+
+
+@pytest.mark.parametrize("bank_mode", ["padded", "bucketed"])
+@pytest.mark.parametrize("decode_block", [1, 4])
+def test_layout_plan_builds_once_a_batch(setup, bank_mode, decode_block,
+                                         monkeypatch):
+    """The engine's ``LayoutPlan``s: the tokens of the per-call layout
+    (the plan taken away); one layout for each prefill group, and one for
+    the first decode launch after an admit pass or a bank rebuild, as the
+    launches' ``lora_layouts`` and ``lora_layout_builds`` count them."""
+    eng, out, spans, rebuilt_at = _layout_run(setup, decode_block,
+                                              bank_mode)
+    fresh = False
+    for i, s in enumerate(spans):
+        fresh = fresh or i == rebuilt_at or s.name == "admit"
+        if s.name == "prefill.launch":
+            assert s.attrs["lora_layouts"] == 1
+        elif s.name == "decode.launch":
+            assert s.attrs["lora_layouts"] == int(fresh), i
+            fresh = False
+    admits = sum(s.name == "admit" for s in spans)
+    # k = 1: the rebuild's plan runs the next decode; k = 4: the first
+    # three requests finish in the first block, and the next step's admit
+    # pass replaces it before any decode
+    followed = [s.name for s in spans[rebuilt_at:]
+                if s.name in ("admit", "decode.launch")][0] == "decode.launch"
+    assert followed == (decode_block == 1) and admits == 2
+    assert eng.lora_layout_builds == admits + eng.prefill_dispatches + \
+        followed == sum(s.attrs.get("lora_layouts", 0) for s in spans)
+
+    from repro_torch.serving.engine import ServingEngine as Engine
+    monkeypatch.setattr(Engine, "_plan",
+                        lambda self, a: self.lora_bank.lora_idx(a))
+    plain, plain_out, plain_spans, _ = _layout_run(setup, decode_block,
+                                                   bank_mode)
+    assert plain_out == out
+    assert plain.lora_layout_builds == 0
+    assert all(s.attrs["lora_layouts"] == 0 for s in plain_spans
+               if s.name.endswith(".launch"))

@@ -8,7 +8,8 @@ weights and nonzero-B banks:
 * the co-sharded LoRA deltas (einsum and SGMV, padded and bucketed; the
   SGMV forms on the plain versions of B3a/B3b and B4a/B4b) put side by
   side equal the JAX single-device delta, fp32 1e-5 (the all-reduce
-  reorders the d-sum);
+  reorders the d-sum), and each rank's delta is the same bits with its
+  index tensor in a ``LayoutPlan`` (the SGMV forms build one layout);
 * on the lifecycle trace of ``test_mesh_sharding.PARITY_SCRIPT`` (with the
   weights installed after every rebuild) each rank emits exactly the JAX
   single-device engine's tokens, in the JAX test's four cases and
@@ -149,6 +150,20 @@ def test_coshard_delta_matches_jax(setup, ranks, form):
         got = np.concatenate([o["delta"][(*form, t)] for o in outs], -1)
         np.testing.assert_allclose(got, want[(*form, t)], atol=1e-5,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("form", DELTA_FORMS, ids="/".join)
+def test_coshard_delta_with_a_layout_plan_equals_without(ranks, form):
+    """On every rank, the hook given its index tensor in a ``LayoutPlan``
+    gives the co-sharded delta of the plain tensor bit for bit; the SGMV
+    forms' plan builds one layout for both targets (the same tokens and
+    block_t), the einsum forms' none."""
+    _, outs = ranks
+    for o in outs:
+        for t in ("q", "o"):
+            np.testing.assert_array_equal(o["plan_delta"][(*form, t)],
+                                          o["delta"][(*form, t)])
+        assert o["plan_builds"][form] == (form[1] == "sgmv")
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "/".join(map(str, c)))
